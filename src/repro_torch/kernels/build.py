@@ -1,0 +1,104 @@
+"""Build the CUDA kernels with ``nvcc`` and bind them through ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles, at first use, into its own shared
+library under ``<checkout>/build/kernels/`` with a plain C interface
+(``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), named by a
+hash of the source and the flags so an edited source rebuilds.
+``build_all`` starts one ``nvcc`` per source at once and waits for all.
+Nothing here runs at import; a failed build raises with the compiler's
+output, and there is no path back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "check", "stream_handle", "ptxas_report"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# <checkout>/build/kernels for a source checkout (src/repro_torch/kernels/build.py)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("moe_gemm", "flash_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_PTXAS: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the machine with the card")
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every missing library in parallel; returns name -> path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: _lib_path(name) for name in names}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    procs = {}
+    for name, path in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        _PTXAS[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, todo[name])  # atomic: a reader never sees half a library
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def ptxas_report(name: str) -> str:
+    """The compiler's ``-Xptxas -v`` output from this process's build of
+    ``name`` (registers, shared memory, spills); empty if it was cached."""
+    return _PTXAS.get(name, "")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu`` (building it if needed)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all((name,))[name]
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    """The current PyTorch stream on ``device``, as a C pointer."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

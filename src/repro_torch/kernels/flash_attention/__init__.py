@@ -1,0 +1,5 @@
+"""Kernel K4: flash attention forward (prefill)."""
+
+from repro_torch.kernels.flash_attention.ops import NEG, attention_mask, flash_attention, flash_attention_plain
+
+__all__ = ["NEG", "attention_mask", "flash_attention", "flash_attention_plain"]

@@ -1,0 +1,125 @@
+"""Attention: GQA with RoPE, prefill through the flash kernel (K4) and
+one-token decode against the KV cache.
+
+The KV cache of one layer is ``{"k", "v": [B, slots, K, D], "pos":
+[B, slots]}`` (``pos`` is the absolute position held in a slot, -1 when
+empty).  Unlike the JAX package, which returns new cache arrays, the port
+writes the cache in place and returns the same dict.  Counterpart of
+``repro/models/attention.py``; prefill always runs K4, whatever
+``repro.models.attention.USE_PALLAS_FLASH`` says.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as k4
+from repro_torch.models.layers import dense, normal_param, rope
+
+__all__ = ["Attention", "attn_init", "init_cache", "attn_flash", "attn_prefill", "attn_decode"]
+
+NEG = -1e30
+
+
+class Attention(nn.Module):
+    """q/k/v/o projections, [d_in, d_out] each, in the compute dtype."""
+
+    def __init__(self, cfg: ModelConfig, *, gen, device, dtype):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        kw = dict(gen=gen, device=device, dtype=dtype)
+        self.q = normal_param((d, cfg.n_heads * hd), d**-0.5, **kw)
+        self.k = normal_param((d, cfg.n_kv_heads * hd), d**-0.5, **kw)
+        self.v = normal_param((d, cfg.n_kv_heads * hd), d**-0.5, **kw)
+        self.o = normal_param((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5, **kw)
+
+
+def attn_init(cfg: ModelConfig, *, gen, device, dtype) -> Attention:
+    return Attention(cfg, gen=gen, device=device, dtype=dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16, device) -> dict:
+    """Empty KV cache; a sliding-window arch holds only the window."""
+    hd = cfg.resolved_head_dim
+    window = cfg.sliding_window
+    slots = min(max_len, window) if window else max_len
+    return {
+        "k": torch.zeros((batch, slots, cfg.n_kv_heads, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, slots, cfg.n_kv_heads, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, slots), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = dense(x, p.q).reshape(b, s, cfg.n_heads, hd)
+    k = dense(x, p.k).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(x, p.v).reshape(b, s, cfg.n_kv_heads, hd)
+    q = rope(q, positions, theta=cfg.rope_theta)
+    k = rope(k, positions, theta=cfg.rope_theta)
+    return q * (hd**-0.5), k, v
+
+
+def _apply_out(p: Attention, out_bshd: torch.Tensor) -> torch.Tensor:
+    b, s = out_bshd.shape[:2]
+    return dense(out_bshd.reshape(b, s, -1), p.o)
+
+
+def attn_flash(p: Attention, cfg: ModelConfig, x: torch.Tensor, *, offset: int = 0):
+    """Full-sequence attention through K4.  Returns (y, (k, v, positions))."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :] + offset
+    q, k, v = _qkv(p, cfg, x, positions)
+    # the kernel wrapper scales q itself: undo _qkv's pre-scale (in the
+    # working dtype, so q is rounded twice, as in the JAX package)
+    q = q * (cfg.resolved_head_dim**0.5)
+    out = k4.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=cfg.sliding_window,
+    )  # [B, H, S, D]
+    return _apply_out(p, out.transpose(1, 2)), (k, v, positions)
+
+
+def attn_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """Attention over the prompt, filling the cache.  Returns (y, cache)."""
+    y, (k, v, positions) = attn_flash(p, cfg, x)
+    b, s = x.shape[:2]
+    slots = cache["k"].shape[1]
+    if s >= slots:  # keep the last ``slots`` positions
+        start = s - slots
+        cache["k"].copy_(k[:, start:])
+        cache["v"].copy_(v[:, start:])
+        cache["pos"].copy_(positions[:, start:].expand(b, slots))
+    else:
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        cache["pos"][:, :s] = positions.expand(b, s)
+    return y, cache
+
+
+def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict, step: int):
+    """One-token decode (x [B, 1, d]) at absolute position ``step``, every
+    batch row at the same depth.  Plain PyTorch: the JAX package runs this
+    as XLA einsums, not a kernel."""
+    b = x.shape[0]
+    positions = torch.full((1, 1), step, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    slots = cache["k"].shape[1]
+    slot = step % slots if cfg.sliding_window else step
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][:, slot] = step
+    kc, vc, pos = cache["k"], cache["v"], cache["pos"]
+    kh = cfg.n_kv_heads
+    qg = q.reshape(b, 1, kh, cfg.n_heads // kh, -1)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), kc.float())  # [B,K,G,1,T]
+    valid = (pos >= 0) & (pos <= step)
+    if cfg.sliding_window:
+        valid &= (step - pos) < cfg.sliding_window
+    logits = torch.where(valid[:, None, None, None, :], logits, torch.full((), NEG, device=x.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(vc.dtype), vc)  # [B, 1, K, G, D]
+    return _apply_out(p, out), cache

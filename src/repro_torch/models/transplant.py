@@ -1,0 +1,75 @@
+"""Weight transplant: the JAX ``Model.init`` pytree -> the port's ``Model``.
+
+PyTorch cannot replay ``jax.random``, so parity runs load the JAX
+package's parameters.  The input is the pytree as numpy arrays,
+``{"embed": {"table"}, "head": {"w"}, "ln_f": {"scale"}, "stack":
+{"pos0": {...}}}`` with block leaves stacked over ``n_periods``.  Weights
+JAX casts before use are stored in the compute dtype; the router and the
+norm scales stay f32.  Every key is consumed; a leftover raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import Model
+
+__all__ = ["load_reference"]
+
+# port attribute path -> (JAX pytree path inside one block, keep f32?)
+_BLOCK_LEAVES = {
+    "ln1": (("ln1", "scale"), True),
+    "ln2": (("ln2", "scale"), True),
+    "mixer.q": (("mixer", "q", "w"), False),
+    "mixer.k": (("mixer", "k", "w"), False),
+    "mixer.v": (("mixer", "v", "w"), False),
+    "mixer.o": (("mixer", "o", "w"), False),
+    "ffn.router": (("ffn", "router", "w"), True),
+    "ffn.w_gate": (("ffn", "w_gate"), False),
+    "ffn.w_up": (("ffn", "w_up"), False),
+    "ffn.w_down": (("ffn", "w_down"), False),
+}
+_TOP_LEAVES = {
+    "embed": (("embed", "table"), False),
+    "head": (("head", "w"), False),
+    "ln_f": (("ln_f", "scale"), True),
+}
+
+
+def _flatten(tree, prefix=()) -> dict[tuple, np.ndarray]:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def load_reference(cfg: ModelConfig, tree: dict, *, device=None, dtype=torch.bfloat16) -> Model:
+    """A ``Model`` holding the JAX parameters ``tree`` (numpy leaves)."""
+    model = Model(cfg, device=device, dtype=dtype, seed=None)
+    leaves = _flatten(tree)
+    if cfg.moe is None or cfg.moe.every != 1:
+        raise NotImplementedError("transplant covers one block per period (Mixtral)")
+
+    def put(param: torch.nn.Parameter, arr: np.ndarray, keep_f32: bool, name: str):
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: reference {arr.shape} vs port {tuple(param.shape)}")
+        t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        param.data.copy_(t.to(torch.float32 if keep_f32 else dtype))
+
+    for attr, (path, keep) in _TOP_LEAVES.items():
+        put(getattr(model, attr), leaves.pop(path), keep, "/".join(path))
+    for attr, (path, keep) in _BLOCK_LEAVES.items():
+        full = ("stack", "pos0") + path
+        stacked = leaves.pop(full)
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"{'/'.join(full)}: {stacked.shape[0]} layers, config has {cfg.n_layers}")
+        for l, block in enumerate(model.layers):
+            param = block.get_parameter(attr)
+            put(param, stacked[l], keep, "/".join(full) + f"[{l}]")
+    if leaves:
+        raise ValueError(f"unconsumed reference leaves: {sorted('/'.join(k) for k in leaves)}")
+    return model

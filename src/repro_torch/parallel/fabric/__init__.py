@@ -1,0 +1,13 @@
+"""MoE dispatch fabrics.  One device runs the virtual ``dense`` fabric for
+every ``MoECfg.dispatch`` name; the multi-rank backends (``a2a``,
+``ppermute``, ``phase_pipelined`` on a mesh, ``ragged_a2a``,
+``hierarchical``) come with a later slice."""
+
+from repro_torch.parallel.fabric.base import FabricContext, PackedTokens, check_wire_dtype
+from repro_torch.parallel.fabric.dense import DenseFabric
+
+# dispatch names the JAX package registers; on one device all of them
+# resolve to the virtual dense fabric (repro/models/moe.py, moe_apply)
+FABRIC_NAMES = ("a2a", "dense", "faulty", "hierarchical", "phase_pipelined", "ppermute", "ragged_a2a")
+
+__all__ = ["DenseFabric", "FABRIC_NAMES", "FabricContext", "PackedTokens", "check_wire_dtype"]

@@ -1,0 +1,79 @@
+"""The port stands alone: importing every ``repro_torch`` module loads no
+``jax`` and nothing of the JAX package, and the entry points refuse to
+run without a card unless the caller asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import smoke_config
+from repro_torch.launch import serve as serve_mod
+from repro_torch.models import Model
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+print("MODULES", len(names))
+print("LOADED", ",".join(bad) or "-")
+"""
+
+
+def test_imports_load_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = dict(line.split(" ", 1) for line in res.stdout.splitlines() if " " in line)
+    assert int(lines["MODULES"]) >= 20, res.stdout
+    assert lines["LOADED"] == "-", f"repro_torch imported {lines['LOADED']}"
+
+
+def test_every_module_is_found():
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    for expected in (
+        "repro_torch.core.schedule", "repro_torch.parallel.fabric.dense", "repro_torch.kernels.moe_gemm.ops",
+        "repro_torch.kernels.flash_attention.ops", "repro_torch.models.transplant", "repro_torch.launch.serve",
+    ):
+        assert expected in names
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_model_raises_without_card_unless_cpu(monkeypatch):
+    _no_card(monkeypatch)
+    cfg = smoke_config("mixtral-8x7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg, device="cuda")
+    assert Model(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_serve_entry_point_raises_without_card_unless_cpu(monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_mod.main(["--smoke", "--batch", "1", "--prompt-len", "8", "--new-tokens", "1", "--rounds", "1"])
+    res = serve_mod.main(
+        ["--smoke", "--batch", "2", "--prompt-len", "8", "--new-tokens", "2", "--rounds", "1",
+         "--controller", "--device", "cpu"]
+    )
+    assert res.tokens.shape == (1, 2, 2)
+    assert torch.isfinite(res.first_logits).all()
+
+
+def test_serve_rejects_drift_scenarios():
+    with pytest.raises(NotImplementedError, match="M6"):
+        serve_mod.main(["--smoke", "--drift", "shift", "--device", "cpu"])

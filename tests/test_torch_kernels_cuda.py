@@ -1,0 +1,99 @@
+"""The CUDA kernels K1 and K4 against their plain PyTorch versions on the
+card, at small and ragged shapes.  Skips without a CUDA device.  Run on
+the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerance 2e-2 (bf16): kernel and plain version both accumulate in f32,
+in another order, so a bf16 rounding of h, p or the output can differ by
+an ulp.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain, tile_occupancy
+
+TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc for sm_90a)")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, scale, device):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "e,c,counts",
+    [
+        (4, 130, [130, 70, 0, 5]),  # full, partial, dark tiles and a ragged 2-row tail tile
+        (8, 8, [1, 0, 3, 0, 8, 2, 0, 1]),  # decode-like: C smaller than the row tile
+    ],
+)
+def test_k1_kernel_matches_plain_on_card(cuda_device, e, c, counts):
+    rng = np.random.default_rng(2)
+    d, f = 128, 256
+    x = _randn(rng, (e, c, d), 0.5, cuda_device)
+    wg, wu = (_randn(rng, (e, d, f), 0.05, cuda_device) for _ in range(2))
+    wd = _randn(rng, (e, f, d), 0.05, cuda_device)
+    rv = torch.zeros((e, c), dtype=torch.bool, device=cuda_device)
+    for i, ct in enumerate(counts):
+        rv[i, :ct] = True
+    before = moe_gemm.launches
+    out = moe_gemm(x, wg, wu, wd, rv)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == before + 1
+    torch.testing.assert_close(out.float(), moe_gemm_plain(x, wg, wu, wd, rv).float(), **TOL)
+    dark = ~tile_occupancy(rv)
+    assert out[dark].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "h,kh,sq,skv,d,window",
+    [
+        (8, 2, 100, 100, 128, None),  # ragged q and kv tiles, GQA G=4
+        (4, 4, 64, 200, 64, None),  # q_offset = Skv - Sq
+        (4, 1, 96, 96, 16, 20),  # sliding window skips leading KV tiles
+    ],
+)
+def test_k4_kernel_matches_plain_on_card(cuda_device, h, kh, sq, skv, d, window):
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (2, h, sq, d), 1.0, cuda_device)
+    k, v = (_randn(rng, (2, kh, skv, d), 1.0, cuda_device) for _ in range(2))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q * (d**-0.5), k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros((2, 8, 64), device=cuda_device)  # f32: the kernel takes bf16 only
+    w = torch.zeros((2, 64, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="bf16"):
+        moe_gemm(x, w, w, w, torch.ones((2, 8), dtype=torch.bool, device=cuda_device))
+    q = torch.zeros((1, 2, 8, 48), dtype=torch.bfloat16, device=cuda_device)  # D=48 not built
+    with pytest.raises(ValueError, match="unsupported"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_k4_kernel_takes_transposed_views(cuda_device):
+    """The model hands K4 [B, S, H, D] tensors transposed to [B, H, S, D]."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (2, 72, 8, 128), 1.0, cuda_device).transpose(1, 2)
+    k, v = (_randn(rng, (2, 72, 2, 128), 1.0, cuda_device).transpose(1, 2) for _ in range(2))
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_plain(q * (128**-0.5), k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
