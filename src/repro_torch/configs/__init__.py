@@ -38,6 +38,7 @@ def smoke_config(cfg: ModelConfig | str) -> ModelConfig:
         vocab_size=256,
         sliding_window=8 if cfg.sliding_window else None,
         moe=moe,
+        remat="none",
     )
 
 

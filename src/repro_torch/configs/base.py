@@ -1,6 +1,6 @@
 """Model configuration dataclasses + the architecture registry.
 
-The fields of ``repro/configs/base.py`` that serving reads, plus the
+The fields of ``repro/configs/base.py`` that serving and training read, plus the
 architecture switches ``models.model.check_supported`` rejects until
 their slice is ported.
 """
@@ -54,6 +54,9 @@ class ModelConfig:
     ffn_gelu: bool = False
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # training activation checkpointing: "block" recomputes each layer's
+    # forward in the backward (torch.utils.checkpoint), "none" keeps it
+    remat: Literal["none", "block"] = "block"
 
     @property
     def resolved_head_dim(self) -> int:

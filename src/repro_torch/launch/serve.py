@@ -3,14 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --smoke --batch 4 --prompt-len 64 --new-tokens 16 --controller
 
-Each round plans one ``ScheduleTable`` from the round's uniform demand
-estimate (``--controller``; the table reaches the MoE layers when the
-arch's dispatch consumes table rows, e.g. ``phase_pipelined``), runs
+Each round plans one ``ScheduleTable`` from the round's demand estimate
+(``--controller``; the table reaches the MoE layers when the arch's
+dispatch consumes table rows, e.g. ``phase_pipelined``), runs
 ``prefill`` over ``[B, S]`` prompts and then ``new_tokens`` greedy
-``decode_step``s with that table.  Counterpart of
-``repro/launch/serve.py``; the drift scenarios and the controller's
-re-planning between rounds come with the host-controller slice, so only
-``--drift none`` runs here.
+``decode_step``s with that table.  The estimate for round ``r`` is
+``tokens * DriftScenario(drift).expert_probs(r)`` broadcast to
+``[L, 1, E]`` with ``tokens = batch * prompt_len * top_k``, as the JAX
+launcher feeds its controller.  Counterpart of ``repro/launch/serve.py``;
+the controller's EMA and re-planning between rounds come with the
+host-controller slice, so only ``--drift none`` runs here.
 """
 
 from __future__ import annotations
@@ -24,15 +26,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.drift import DriftScenario
 from repro_torch.core.runtime import plan_serving_table
 from repro_torch.models import Model
+from repro_torch.parallel.fabric import TABLE_FABRICS
 
-__all__ = ["ServeResult", "serve", "uniform_estimate", "main"]
+__all__ = ["ServeResult", "serve", "demand_estimate", "uniform_estimate", "main"]
 
 log = logging.getLogger("repro_torch.launch.serve")
-
-# dispatch names whose fabric consumes ScheduleTable rows (JAX: consumes_table)
-_TABLE_FABRICS = ("phase_pipelined", "ragged_a2a", "hierarchical", "scheduled")
 
 
 @dataclasses.dataclass
@@ -58,6 +59,13 @@ def uniform_estimate(cfg, tokens: float) -> np.ndarray:
     return np.full((cfg.n_moe_layers, 1, m.n_experts), tokens / m.n_experts, np.float32)
 
 
+def demand_estimate(cfg, tokens: float, scenario: DriftScenario, r: int) -> np.ndarray:
+    """Round ``r``'s routing-count estimate ``[n_moe_layers, 1, E]``:
+    ``tokens`` routed choices spread by the scenario's expert popularity."""
+    probs = scenario.expert_probs(r)[None, None, :]
+    return np.broadcast_to(tokens * probs, (cfg.n_moe_layers, 1, cfg.moe.n_experts))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -76,15 +84,17 @@ def serve(
 ) -> ServeResult:
     """Serve ``rounds`` batches of random prompts (made from ``seed``)."""
     cfg, device = model.cfg, model.device
-    use_table = controller and cfg.moe.dispatch in _TABLE_FABRICS
+    use_table = controller and cfg.moe.dispatch in TABLE_FABRICS
     prefill_ms, decode_ms, plan_ms, tokens = [], [], [], []
     first_logits = table = None
+    half = max(rounds // 2, 1)  # the JAX serving controller's scenario settings
+    scenario = DriftScenario("none", cfg.moe.n_experts, shift_step=half, window=half, seed=0)
     totals = torch.zeros(3, dtype=torch.float64, device=device)  # admitted, dropped, routed
     for r in range(rounds):
         t0 = time.perf_counter()
         table = None
         if controller:
-            est = uniform_estimate(cfg, float(batch * prompt_len * cfg.moe.top_k))
+            est = demand_estimate(cfg, float(batch * prompt_len * cfg.moe.top_k), scenario, r)
             table = plan_serving_table(
                 est, n_ranks=virtual_ranks, n_experts=cfg.moe.n_experts,
                 strategy=cfg.moe.schedule_strategy, device=device,

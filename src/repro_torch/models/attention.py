@@ -1,5 +1,6 @@
-"""Attention: GQA with RoPE, prefill through the flash kernel (K4) and
-one-token decode against the KV cache.
+"""Attention: GQA with RoPE, prefill through the flash kernel (K4),
+one-token decode against the KV cache, and the training path
+(``attn_train``: full masked attention in plain PyTorch with autograd).
 
 The KV cache of one layer is ``{"k", "v": [B, slots, K, D], "pos":
 [B, slots]}`` (``pos`` is the absolute position held in a slot, -1 when
@@ -18,13 +19,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as k4
 from repro_torch.models.layers import dense, normal_param, rope
 
-__all__ = ["Attention", "attn_init", "init_cache", "attn_flash", "attn_prefill", "attn_decode"]
+__all__ = [
+    "Attention", "attn_init", "init_cache", "attn_flash", "attn_prefill", "attn_decode", "attn_full", "attn_train",
+]
 
 NEG = -1e30
+CHUNK = 512  # JAX attn_train switches to its chunked path beyond 2 * CHUNK tokens
 
 
 class Attention(nn.Module):
-    """q/k/v/o projections, [d_in, d_out] each, in the compute dtype."""
+    """q/k/v/o projections, [d_in, d_out] each, in the storage dtype."""
 
     def __init__(self, cfg: ModelConfig, *, gen, device, dtype):
         super().__init__()
@@ -66,6 +70,42 @@ def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
 def _apply_out(p: Attention, out_bshd: torch.Tensor) -> torch.Tensor:
     b, s = out_bshd.shape[:2]
     return dense(out_bshd.reshape(b, s, -1), p.o)
+
+
+def _mask(cfg: ModelConfig, s: int, device) -> torch.Tensor:
+    """[S, S] bool: causal, and the sliding window when the arch has one."""
+    pos = torch.arange(s, device=device)
+    m = pos[None, :] <= pos[:, None]
+    if cfg.sliding_window:
+        m &= pos[:, None] - pos[None, :] < cfg.sliding_window
+    return m
+
+
+def attn_full(p: Attention, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Full (quadratic) masked attention over x [B, S, d], differentiable.
+    Rounds where JAX ``attn_full`` does: logits f32 from compute-dtype q/k,
+    softmax f32, weights cast to v's dtype, output projection in the
+    compute dtype."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, positions)
+    kh = cfg.n_kv_heads
+    qg = q.reshape(b, s, kh, cfg.n_heads // kh, -1)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())  # [B, K, G, S, T]
+    logits = torch.where(_mask(cfg, s, x.device), logits, torch.full((), NEG, device=x.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return _apply_out(p, out)
+
+
+def attn_train(p: Attention, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Training attention.  JAX runs ``attn_chunked`` beyond 2 * CHUNK
+    tokens; that path is not ported yet."""
+    if x.shape[1] > 2 * CHUNK:
+        raise NotImplementedError(
+            f"attn_train at {x.shape[1]} tokens: the chunked path (> {2 * CHUNK}) is not ported yet (ROADMAP)"
+        )
+    return attn_full(p, cfg, x)
 
 
 def attn_flash(p: Attention, cfg: ModelConfig, x: torch.Tensor, *, offset: int = 0):

@@ -1,11 +1,14 @@
 """Core layers: device choice, parameter init, rmsnorm, dense, embed, rope.
 
 The cast convention: the JAX package keeps f32 parameters and casts each
-weight to ``COMPUTE_DTYPE`` right before use.  The port stores every such
-weight in the compute dtype once (same numbers, half the bytes in bf16)
-and keeps f32 what JAX uses in f32: norm scales and the router.
-Activations run in the compute dtype, norms and softmaxes in f32.
-Counterpart of ``repro/models/layers.py``.
+weight to ``COMPUTE_DTYPE`` right before use.  The port stores those
+weights in a storage dtype of its own (``Model(param_dtype=...)``): the
+compute dtype for serving (the cast at use is then a no-op and the bytes
+are halved in bf16), f32 masters for training (the cast at use carries
+the gradient back to f32, as JAX's ``cast`` does).  Norm scales and the
+router are f32 in both, as JAX uses them.  Activations run in the
+compute dtype, norms and softmaxes in f32.  Counterpart of
+``repro/models/layers.py``.
 """
 
 from __future__ import annotations
@@ -41,29 +44,54 @@ def normal_param(shape, scale: float, *, gen, device, dtype) -> nn.Parameter:
     """``N(0, 1) * scale`` drawn in f32 from ``gen`` on ``device``, stored
     in ``dtype`` (``gen`` None: uninitialized storage, to be loaded)."""
     if gen is None:
-        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+        w = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        w = (torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale).to(dtype)
+    return nn.Parameter(w, requires_grad=False)
 
 
 def ones_param(d: int, *, device) -> nn.Parameter:
     return nn.Parameter(torch.ones(d, dtype=torch.float32, device=device), requires_grad=False)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """f32 RMS norm whose backward computes in f32 and hands ``dx`` back in
+    ``x.dtype`` and ``dscale`` in the scale's dtype (JAX ``_rmsnorm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        r = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, r, scale)
+        return (xf * r * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, r, scale = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        gs = gf * scale
+        dot = torch.sum(gs * xf, dim=-1, keepdim=True)
+        dx = r * gs - (r**3) * xf * dot / x.shape[-1]
+        dscale = torch.sum(gf * xf * r, dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """f32 RMS norm, result in x.dtype."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with ``w`` [d_in, d_out] stored in the compute dtype."""
-    return x @ w
+    """``x @ w`` with ``w`` [d_in, d_out] cast to x's (compute) dtype at use."""
+    return x @ w.to(x.dtype)
 
 
-def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+def embed(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows of ``table`` cast to ``dtype``; the whole table is cast before
+    the gather, as JAX does, so duplicate ids sum their cotangents in
+    ``dtype`` in the backward."""
+    return table.to(dtype)[ids]
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10_000.0) -> torch.Tensor:

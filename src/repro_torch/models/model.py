@@ -1,21 +1,28 @@
 """Model facade: embeddings -> layer stack -> norm -> logits, with the
-serving entry points ``prefill`` and ``decode_step``.
+serving entry points ``prefill`` and ``decode_step`` and the training
+entry points ``forward``, ``loss`` and ``loss_and_stats``.
 
 ``Model(cfg, device=...)`` holds the parameters as an ``nn.Module`` on
-one device: CUDA unless the caller passes ``device="cpu"``.  ``seed``
-draws them from a ``torch.Generator`` on that device with the JAX init's
-distributions (the numbers differ from JAX's); ``seed=None`` leaves them
-for ``transplant.load_reference``.  Counterpart of ``repro/models/model.py``.
+one device: CUDA unless the caller passes ``device="cpu"``.  ``dtype``
+is the compute dtype; ``param_dtype`` (default: ``dtype``) stores the
+weights JAX casts at use, so a trainer passes ``torch.float32`` masters
+and ``requires_grad=True``.  ``seed`` draws the parameters from a
+``torch.Generator`` on that device with the JAX init's distributions
+(the numbers differ from JAX's); ``seed=None`` leaves them for
+``transplant.load_reference``.  Counterpart of ``repro/models/model.py``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import stack
 from repro_torch.models.layers import dense, embed, normal_param, ones_param, resolve_device, rmsnorm
+
+CE_CHUNKS = 8  # JAX Model._ce: sequence chunks of the cross-entropy
 
 __all__ = ["Model", "check_supported"]
 
@@ -36,19 +43,24 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.bfloat16, seed: int | None = 0):
+    def __init__(
+        self, cfg: ModelConfig, *, device=None, dtype=torch.bfloat16, param_dtype=None,
+        seed: int | None = 0, requires_grad: bool = False,
+    ):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.param_dtype = dtype if param_dtype is None else param_dtype
         gen = None if seed is None else torch.Generator(device=self.device).manual_seed(seed)
-        kw = dict(gen=gen, device=self.device, dtype=dtype)
+        kw = dict(gen=gen, device=self.device, dtype=self.param_dtype)
         d = cfg.d_model
         self.embed = normal_param((cfg.vocab_size, d), 0.02, **kw)
         self.layers = nn.ModuleList(stack.block_init(cfg, l, **kw) for l in range(cfg.n_layers))
         self.ln_f = ones_param(d, device=self.device)
         self.head = normal_param((d, cfg.vocab_size), d**-0.5, **kw)
+        self.requires_grad_(requires_grad)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> list[dict]:
         return stack.stack_cache(self.cfg, batch, max_len, dtype=dtype, device=self.device)
@@ -57,13 +69,65 @@ class Model(nn.Module):
         x = rmsnorm(x, self.ln_f, eps=self.cfg.norm_eps)
         return dense(x, self.head).float()
 
+    # ------------------------------------------------------------ training
+    def reference_ranks(self) -> dict[str, int]:
+        """Each parameter's rank in the JAX pytree, whose block leaves are
+        stacked over layers (one more axis than the port's per-layer
+        tensor).  AdamW decays by this rank, as JAX does."""
+        return {n: p.dim() + n.startswith("layers.") for n, p in self.named_parameters()}
+
+    def _hidden(self, tokens, schedule, collect_stats):
+        x = embed(self.embed, tokens, self.dtype)
+        return stack.stack_train(self.layers, self.cfg, x, schedule, collect_stats=collect_stats)
+
+    def forward(self, tokens: torch.Tensor, *, schedule=None) -> torch.Tensor:
+        """Training/eval forward: full-sequence logits [B, S, V] (f32)."""
+        return self._logits(self._hidden(tokens, schedule, False))
+
+    def loss(self, batch: dict, *, schedule=None) -> torch.Tensor:
+        """Mean next-token cross-entropy over positions with targets >= 0
+        (``batch``: ``tokens`` / ``targets`` [B, S] int)."""
+        return self._ce(self._hidden(batch["tokens"], schedule, False), batch["targets"])
+
+    def loss_and_stats(self, batch: dict, *, schedule=None):
+        """``loss`` plus the per-layer MoE stats (``routing`` [L, 1, E],
+        ``dropped`` / ``admitted`` [L, 1])."""
+        hidden, stats = self._hidden(batch["tokens"], schedule, True)
+        return self._ce(hidden, batch["targets"]), stats
+
+    def _ce_chunk(self, h_c, t_c):
+        logits = self._logits(h_c)
+        mask = (t_c >= 0).float()
+        safe = torch.clamp(t_c, min=0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        return ((logz - gold) * mask).sum(), mask.sum()
+
+    def _ce(self, hidden, targets) -> torch.Tensor:
+        """The JAX ``_ce``: the sequence in ``CE_CHUNKS`` chunks (one when S
+        does not divide), each chunk's logits recomputed in the backward
+        instead of kept, summed in chunk order in f32."""
+        s = hidden.shape[1]
+        nc = CE_CHUNKS if s % CE_CHUNKS == 0 else 1
+        sc = s // nc
+        nll = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(nc):
+            h_c, t_c = hidden[:, i * sc:(i + 1) * sc], targets[:, i * sc:(i + 1) * sc]
+            if nc == 1:
+                n, c = self._ce_chunk(h_c, t_c)
+            else:
+                n, c = checkpoint(self._ce_chunk, h_c, t_c, use_reentrant=False)
+            nll, cnt = nll + n, cnt + c
+        return nll / torch.clamp(cnt, min=1.0)
+
+    # ------------------------------------------------------------- serving
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, caches: list[dict], *, schedule=None, collect_stats=False):
         """Process prompts [B, S], filling ``caches`` in place.  Returns
         (last-token logits [B, V] f32, caches), plus the per-layer MoE
         stats (``routing`` [L, 1, E], ``dropped`` / ``admitted`` [L, 1])
         with ``collect_stats``."""
-        x = embed(self.embed, tokens)
+        x = embed(self.embed, tokens, self.dtype)
         stats = []
         for p, cache, row in zip(self.layers, caches, stack.schedule_rows(schedule, self.cfg)):
             x, _, st = stack.block_prefill(p, self.cfg, x, cache, row, collect_stats=collect_stats)
@@ -77,7 +141,7 @@ class Model(nn.Module):
     def decode_step(self, token: torch.Tensor, caches: list[dict], step: int, *, schedule=None, collect_stats=False):
         """One decode step for token [B] at absolute position ``step``.
         Returns (logits [B, V] f32, caches) (+ stats, as ``prefill``)."""
-        x = embed(self.embed, token[:, None])
+        x = embed(self.embed, token[:, None], self.dtype)
         stats = []
         for p, cache, row in zip(self.layers, caches, stack.schedule_rows(schedule, self.cfg)):
             x, _, st = stack.block_decode(p, self.cfg, x, cache, step, row, collect_stats=collect_stats)

@@ -5,8 +5,8 @@ Top-k softmax gating with capacity-factor dropping; a ``ScheduleTable``
 row's admission decides which choices reach the expert GEMM.  Every
 ``MoECfg.dispatch`` name runs the virtual dense fabric here, as it does
 in the JAX package on one device (``repro/models/moe.py``, ``moe_apply``).
-On a CUDA tensor the expert FFN always runs K1, whatever
-``MoECfg.use_pallas`` says.
+On a CUDA tensor the expert FFN always runs K1 (and K2/K3 in its
+backward), whatever ``MoECfg.use_pallas`` says.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ _DENSE = DenseFabric()
 
 class MoE(nn.Module):
     """router [d, E] (f32, as JAX uses it), w_gate/w_up [E, d, F] and
-    w_down [E, F, d] in the compute dtype."""
+    w_down [E, F, d] in the storage dtype, cast to the compute dtype at use."""
 
     def __init__(self, cfg: ModelConfig, *, gen, device, dtype):
         super().__init__()
@@ -58,8 +58,9 @@ def _router(p: MoE, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _expert_ffn(p: MoE, x: torch.Tensor, row_valid: torch.Tensor) -> torch.Tensor:
-    """Grouped SwiGLU over expert groups: [E, C, d] -> [E, C, d] via K1."""
-    return k1.moe_gemm(x, p.w_gate, p.w_up, p.w_down, row_valid)
+    """Grouped SwiGLU over expert groups: [E, C, d] -> [E, C, d] via K1
+    (differentiable through K2/K3)."""
+    return k1.moe_gemm(x, p.w_gate.to(x.dtype), p.w_up.to(x.dtype), p.w_down.to(x.dtype), row_valid)
 
 
 def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, *, return_stats: bool):

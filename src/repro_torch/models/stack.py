@@ -1,5 +1,8 @@
 """Layer stack: a Python loop over layers takes the JAX ``lax.scan``'s
-place, handing ``table.row(l)`` to the l-th MoE layer.
+place, handing ``table.row(l)`` to the l-th MoE layer.  The training
+stack checkpoints each block under ``cfg.remat == "block"``
+(``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of a period),
+so the backward recomputes the block's forward, K1 included.
 
 Only attention + MoE/SwiGLU blocks are ported (Mixtral's pattern).
 Counterpart of ``repro/models/stack.py``.
@@ -9,6 +12,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.schedule import ScheduleTable
@@ -16,7 +20,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import ones_param, rmsnorm
 from repro_torch.models.moe import moe_apply, moe_init
 
-__all__ = ["Block", "block_init", "block_prefill", "block_decode", "stack_cache", "schedule_rows"]
+__all__ = [
+    "Block", "block_init", "block_train", "block_prefill", "block_decode", "stack_train", "stack_cache",
+    "schedule_rows",
+]
 
 
 class Block(nn.Module):
@@ -32,6 +39,31 @@ class Block(nn.Module):
 
 def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype) -> Block:
     return Block(cfg, j, gen=gen, device=device, dtype=dtype)
+
+
+def block_train(p: Block, cfg: ModelConfig, x, schedule, *, collect_stats=False):
+    """One training layer over x [B, S, d].  Returns (x, stats-or-None)."""
+    h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
+    x = x + attn.attn_train(p.mixer, cfg, h)
+    h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
+    return _ffn(p, cfg, x, h, schedule, collect_stats)
+
+
+def stack_train(layers, cfg: ModelConfig, x, schedule, *, collect_stats=False):
+    """Run the training stack over x [B, S, d].  ``schedule`` is None or a
+    ``ScheduleTable`` with one row per MoE layer.  With ``collect_stats``
+    returns ``(x, stats)``, the per-layer MoE stats stacked over layers
+    (``routing`` [L, 1, E], ``dropped`` / ``admitted`` [L, 1])."""
+    stats = []
+    for p, row in zip(layers, schedule_rows(schedule, cfg)):
+        if cfg.remat == "block":
+            x, st = checkpoint(block_train, p, cfg, x, row, collect_stats=collect_stats, use_reentrant=False)
+        elif cfg.remat == "none":
+            x, st = block_train(p, cfg, x, row, collect_stats=collect_stats)
+        else:
+            raise ValueError(f"remat {cfg.remat!r}: the port runs 'none' or 'block'")
+        stats.append(st)
+    return (x, stack_stats(stats)) if collect_stats else x
 
 
 def block_prefill(p: Block, cfg: ModelConfig, x, cache: dict, schedule, *, collect_stats=False):

@@ -1,11 +1,15 @@
-"""Weight transplant: the JAX ``Model.init`` pytree -> the port's ``Model``.
+"""Weight transplant between the JAX ``Model.init`` pytree and the port's
+``Model``, both ways.
 
 PyTorch cannot replay ``jax.random``, so parity runs load the JAX
-package's parameters.  The input is the pytree as numpy arrays,
-``{"embed": {"table"}, "head": {"w"}, "ln_f": {"scale"}, "stack":
-{"pos0": {...}}}`` with block leaves stacked over ``n_periods``.  Weights
-JAX casts before use are stored in the compute dtype; the router and the
-norm scales stay f32.  Every key is consumed; a leftover raises.
+package's parameters.  The pytree is numpy arrays, ``{"embed":
+{"table"}, "head": {"w"}, "ln_f": {"scale"}, "stack": {"pos0": {...}}}``
+with block leaves stacked over ``n_periods``.  ``load_reference`` stores
+the weights JAX casts before use in ``param_dtype`` (default: the
+compute dtype; ``torch.float32`` for training masters); the router and
+the norm scales stay f32.  Every key is consumed; a leftover raises.
+``to_reference`` rebuilds that pytree from a model's parameters, or
+from their gradients, so tests compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model
 
-__all__ = ["load_reference"]
+__all__ = ["load_reference", "to_reference"]
 
 # port attribute path -> (JAX pytree path inside one block, keep f32?)
 _BLOCK_LEAVES = {
@@ -47,9 +51,13 @@ def _flatten(tree, prefix=()) -> dict[tuple, np.ndarray]:
     return {prefix: np.asarray(tree)}
 
 
-def load_reference(cfg: ModelConfig, tree: dict, *, device=None, dtype=torch.bfloat16) -> Model:
+def load_reference(
+    cfg: ModelConfig, tree: dict, *, device=None, dtype=torch.bfloat16, param_dtype=None,
+    requires_grad: bool = False,
+) -> Model:
     """A ``Model`` holding the JAX parameters ``tree`` (numpy leaves)."""
-    model = Model(cfg, device=device, dtype=dtype, seed=None)
+    model = Model(cfg, device=device, dtype=dtype, param_dtype=param_dtype, seed=None, requires_grad=requires_grad)
+    stored = model.param_dtype
     leaves = _flatten(tree)
     if cfg.moe is None or cfg.moe.every != 1:
         raise NotImplementedError("transplant covers one block per period (Mixtral)")
@@ -58,7 +66,7 @@ def load_reference(cfg: ModelConfig, tree: dict, *, device=None, dtype=torch.bfl
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(f"{name}: reference {arr.shape} vs port {tuple(param.shape)}")
         t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-        param.data.copy_(t.to(torch.float32 if keep_f32 else dtype))
+        param.data.copy_(t.to(torch.float32 if keep_f32 else stored))
 
     for attr, (path, keep) in _TOP_LEAVES.items():
         put(getattr(model, attr), leaves.pop(path), keep, "/".join(path))
@@ -73,3 +81,32 @@ def load_reference(cfg: ModelConfig, tree: dict, *, device=None, dtype=torch.bfl
     if leaves:
         raise ValueError(f"unconsumed reference leaves: {sorted('/'.join(k) for k in leaves)}")
     return model
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def to_reference(model_or_grads) -> dict:
+    """The JAX pytree layout (numpy f32 leaves) of a ``Model``'s parameters
+    or of a ``{name: tensor}`` dict keyed like ``model.named_parameters()``
+    (e.g. their gradients).  Block leaves are stacked over layers."""
+    if isinstance(model_or_grads, Model):
+        named = dict(model_or_grads.named_parameters())
+    else:
+        named = dict(model_or_grads)
+
+    def arr(name):
+        return named.pop(name).detach().float().cpu().numpy()
+
+    tree: dict = {}
+    for attr, (path, _) in _TOP_LEAVES.items():
+        _set(tree, path, arr(attr))
+    n_layers = 1 + max(int(k.split(".")[1]) for k in named if k.startswith("layers."))
+    for attr, (path, _) in _BLOCK_LEAVES.items():
+        _set(tree, ("stack", "pos0") + path, np.stack([arr(f"layers.{l}.{attr}") for l in range(n_layers)]))
+    if named:
+        raise ValueError(f"parameters with no reference leaf: {sorted(named)}")
+    return tree

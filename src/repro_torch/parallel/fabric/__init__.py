@@ -9,5 +9,7 @@ from repro_torch.parallel.fabric.dense import DenseFabric
 # dispatch names the JAX package registers; on one device all of them
 # resolve to the virtual dense fabric (repro/models/moe.py, moe_apply)
 FABRIC_NAMES = ("a2a", "dense", "faulty", "hierarchical", "phase_pipelined", "ppermute", "ragged_a2a")
+# dispatch names whose fabric consumes ScheduleTable rows (JAX: consumes_table)
+TABLE_FABRICS = ("phase_pipelined", "ragged_a2a", "hierarchical", "scheduled")
 
-__all__ = ["DenseFabric", "FABRIC_NAMES", "FabricContext", "PackedTokens", "check_wire_dtype"]
+__all__ = ["DenseFabric", "FABRIC_NAMES", "TABLE_FABRICS", "FabricContext", "PackedTokens", "check_wire_dtype"]

@@ -44,6 +44,8 @@ def test_every_module_is_found():
     for expected in (
         "repro_torch.core.schedule", "repro_torch.parallel.fabric.dense", "repro_torch.kernels.moe_gemm.ops",
         "repro_torch.kernels.flash_attention.ops", "repro_torch.models.transplant", "repro_torch.launch.serve",
+        "repro_torch.launch.train", "repro_torch.launch.dryrun", "repro_torch.train.train_step",
+        "repro_torch.optim.adamw", "repro_torch.data.pipeline", "repro_torch.core.drift", "repro_torch.core.traffic",
     ):
         assert expected in names
 

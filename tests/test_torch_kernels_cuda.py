@@ -1,12 +1,17 @@
-"""The CUDA kernels K1 and K4 against their plain PyTorch versions on the
-card, at small and ragged shapes.  Skips without a CUDA device.  Run on
+"""The CUDA kernels K1, K2/K3 (its backward), K3b (ungrouped) and K4
+against their plain PyTorch versions on the card, at small and ragged
+shapes.  Skips without a CUDA device.  Run on
 the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerance 2e-2 (bf16): kernel and plain version both accumulate in f32,
 in another order, so a bf16 rounding of h, p or the output can differ by
-an ulp.
+an ulp.  The weight gradients (K3) are held by relative L2 (2e-3) and a
+max error of 2e-2 * max|plain|: kernel and plain version each round
+their own f32 da/du/h to bf16, a few tenths of a percent of those land
+one ulp apart, and one such element times a large x moves a single
+weight gradient by more than the elementwise bound.
 """
 
 import numpy as np
@@ -14,9 +19,26 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain, tile_occupancy
+from repro_torch.kernels.moe_gemm import (
+    moe_gemm,
+    moe_gemm_bwd,
+    moe_gemm_dgrad,
+    moe_gemm_dgrad_plain,
+    moe_gemm_plain,
+    moe_gemm_ungrouped,
+    moe_gemm_wgrad,
+    moe_gemm_wgrad_plain,
+    tile_occupancy,
+)
 
 TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _close_l2(got, want, rel=2e-3, max_rel=2e-2):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= rel
+    assert (got - want).abs().max().item() <= max_rel * want.abs().max().item()
 
 
 @pytest.fixture
@@ -54,6 +76,67 @@ def test_k1_kernel_matches_plain_on_card(cuda_device, e, c, counts):
     torch.testing.assert_close(out.float(), moe_gemm_plain(x, wg, wu, wd, rv).float(), **TOL)
     dark = ~tile_occupancy(rv)
     assert out[dark].abs().max().item() == 0.0
+
+
+def _k2k3_inputs(e, c, counts, device, d=128, f=256):
+    """Unit-scale activations and 1/sqrt(fan-in) weights: outputs of order 1."""
+    rng = np.random.default_rng(3)
+    x, go = _randn(rng, (e, c, d), 1.0, device), _randn(rng, (e, c, d), 1.0, device)
+    wg, wu = (_randn(rng, (e, d, f), d**-0.5, device) for _ in range(2))
+    wd = _randn(rng, (e, f, d), f**-0.5, device)
+    rv = torch.zeros((e, c), dtype=torch.bool, device=device)
+    for i, ct in enumerate(counts):
+        rv[i, :ct] = True
+    return go, x, wg, wu, wd, rv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "e,c,counts",
+    [
+        (4, 130, [130, 70, 0, 5]),  # full, partial, dark tiles, a ragged tail tile, an all-dark expert
+        (8, 8, [1, 0, 3, 0, 8, 2, 0, 1]),  # C smaller than the row tile
+        (3, 200, [0, 200, 64]),  # an all-dark expert first; a live tile after a dark one
+    ],
+)
+def test_k2_k3_kernels_match_plain_on_card(cuda_device, e, c, counts):
+    go, x, wg, wu, wd, rv = _k2k3_inputs(e, c, counts, cuda_device)
+    n2, n3 = moe_gemm_dgrad.launches, moe_gemm_wgrad.launches
+    dx = moe_gemm_dgrad(go, x, wg, wu, wd, rv)
+    grads = moe_gemm_wgrad(go, x, wg, wu, wd, rv)
+    torch.cuda.synchronize()
+    assert (moe_gemm_dgrad.launches, moe_gemm_wgrad.launches) == (n2 + 1, n3 + 1)
+    torch.testing.assert_close(dx.float(), moe_gemm_dgrad_plain(go, x, wg, wu, wd, rv).float(), **TOL)
+    for got, want in zip(grads, moe_gemm_wgrad_plain(go, x, wg, wu, wd, rv)):
+        assert got.dtype == torch.bfloat16
+        _close_l2(got, want)
+    occ = tile_occupancy(rv)
+    assert dx[~occ].abs().max().item() == 0.0  # dark tiles: exact zeros
+    dark_experts = ~occ.any(dim=1)
+    for g in grads:
+        assert g[dark_experts].abs().max().item() == 0.0
+    fused = moe_gemm_bwd(go, x, wg, wu, wd, rv)  # the autograd backward's shared-recompute form
+    for a, b in zip(fused, (dx, *grads)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k3b_and_autograd_backward_on_card(cuda_device):
+    """K3b (every row live) forward and its backward through autograd."""
+    go, x, wg, wu, wd, _ = _k2k3_inputs(2, 72, [], cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (x, wg, wu, wd)]
+    n1, nb = moe_gemm.launches, moe_gemm_ungrouped.launches
+    out = moe_gemm_ungrouped(*leaves)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert (moe_gemm.launches, moe_gemm_ungrouped.launches) == (n1, nb + 1)
+    ref = [t.clone().requires_grad_() for t in (x, wg, wu, wd)]
+    torch.testing.assert_close(out.float(), moe_gemm_plain(*ref).float(), **TOL)
+    all_live = torch.ones((2, 72), dtype=torch.bool, device=cuda_device)
+    want = (moe_gemm_dgrad_plain(go, x, wg, wu, wd, all_live), *moe_gemm_wgrad_plain(go, x, wg, wu, wd, all_live))
+    torch.testing.assert_close(leaves[0].grad.float(), want[0].float(), **TOL)
+    for leaf, w in zip(leaves[1:], want[1:]):
+        _close_l2(leaf.grad, w)
 
 
 @pytest.mark.cuda

@@ -128,3 +128,43 @@ def test_schedule_table_on_device_argument():
         t.row(0).row(0)
     with pytest.raises(ValueError, match="row slice"):
         t.pair_caps()
+
+
+@pytest.mark.parametrize("kind", ["none", "shift", "hotspot", "skew"])
+def test_drift_scenario_matches_jax(kind):
+    from repro.core.drift import DriftScenario as JaxDrift
+
+    from repro_torch.core.drift import DriftScenario
+
+    port, ref = DriftScenario(kind, 8, shift_step=2, window=3, seed=4), JaxDrift(kind, 8, shift_step=2, window=3, seed=4)
+    stats = np.random.default_rng(0).integers(0, 40, size=(2, 1, 8)).astype(np.float64)
+    for step in range(7):
+        np.testing.assert_array_equal(port.expert_probs(step), ref.expert_probs(step))
+        np.testing.assert_array_equal(port.stats_hook(step, stats), ref.stats_hook(step, stats))
+        np.testing.assert_array_equal(port.traffic(step, np.full(4, 100.0), n_ranks=4), ref.traffic(step, np.full(4, 100.0), n_ranks=4))
+
+
+def test_serving_launcher_table_equals_jax_controller_under_drift_estimate():
+    """The JAX serve launcher (--controller --drift none) feeds its
+    controller tokens * DriftScenario("none").expert_probs(r); the port's
+    launcher plans round 0 from the same estimate and gets the same table."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.drift import DriftScenario
+    from repro_torch.launch.serve import demand_estimate, serve
+    from repro_torch.models import Model
+
+    batch, prompt, rounds = 2, 8, 1
+    jcfg = dataclasses.replace(jax_smoke("mixtral-8x7b"), n_layers=2)
+    runtime, scenario = make_serving_controller(jcfg, n_ranks=8, drift="none", rounds=rounds)
+    tokens = float(batch * prompt * jcfg.moe.top_k)
+    stats = np.broadcast_to(tokens * scenario.expert_probs(0)[None, None, :], (runtime.n_layers, 1, jcfg.moe.n_experts))
+    runtime.observe(stats)
+    ref = runtime.table()
+
+    pcfg = smoke_config("mixtral-8x7b")
+    pcfg = dataclasses.replace(pcfg, moe=dataclasses.replace(pcfg.moe, dispatch="phase_pipelined"))
+    est = demand_estimate(pcfg, tokens, DriftScenario("none", pcfg.moe.n_experts), 0)
+    np.testing.assert_array_equal(est, stats)
+    _assert_table_equal(plan_serving_table(est, n_ranks=8, n_experts=8), ref)
+    res = serve(Model(pcfg, device="cpu"), batch=batch, prompt_len=prompt, new_tokens=1, rounds=rounds)
+    _assert_table_equal(res.table, ref)
