@@ -27,7 +27,22 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    compute, remat per block, AdamW) for a few steps of synthetic data
    under the launcher's lossless table; counts reset just before and read
    just after; the loss must be finite and fall; then one more step runs
-   under ``torch.profiler`` and its device time is printed by kernel group.
+   under ``torch.profiler`` and its device time is printed by kernel group;
+9. K5 (the WKV6 recurrence) against its plain version at the RWKV6-7B
+   prefill shape (r/k/v [4, 64, 1024, 64] bf16) from S = 0, and at T = 1
+   and T = 37 from a carried state, with its time, the plain version's
+   and the bound (no PyTorch call computes it: library none);
+10. serve full-width RWKV6-7B at all 32 layers (random weights from a
+   seed; no MoE, so no table): prefill and greedy decode, 2 rounds;
+   launch counts reset just before and read just after (K5 once per layer
+   per prefill and per decode step, every other kernel 0 times); then, at
+   a shorter prompt, K5 held against its plain version on every layer's
+   own inputs inside the bf16 prefill, the bf16 logits of the kernel path
+   held against the plain path within twice the bf16 noise floor measured
+   in the same run, one more
+   prefill and 8 decode steps under ``torch.profiler`` (device time by
+   kernel group), and the prefill logits of the kernel path held against
+   the plain path on the same seeded model in f32.
 
 It prints a ``kernels`` JSON line, then, last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before that line.
@@ -46,8 +61,9 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor-core peak and HBM3 rate
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor-core peak, f32 peak outside the tensor cores, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 BF16_TOL = 2e-2  # kernel vs plain, |diff| <= TOL + TOL * |plain| (both f32-accumulated; bf16 rounding)
 # K3 (wgrad) vs plain: relative L2 per output <= WGRAD_REL_L2 and max |diff| <= WGRAD_MAX_REL * max |plain|.
@@ -56,15 +72,25 @@ BF16_TOL = 2e-2  # kernel vs plain, |diff| <= TOL + TOL * |plain| (both f32-accu
 # a flipped element times |x| up to ~4 moves a weight gradient of |p| ~ 1 by ~0.13, so the elementwise
 # bound above does not hold for K3 at this shape (measured: rel L2 5.8e-4, max |diff| 0.5 at max |plain| 100).
 WGRAD_REL_L2, WGRAD_MAX_REL = 2e-3, 2e-2
-LOGITS_REL_TOL = 2e-2  # per-row relative L2 error of the 4-layer prefill logits, kernel vs plain path
+LOGITS_REL_TOL = 2e-2  # per-row relative L2 of prefill logits, kernel vs plain path (Mixtral, 4 layers, bf16)
+# RWKV6 prefill logits, kernel vs plain path, per-row relative L2.  In f32 only the order of the 64-term sums
+# inside the recurrence differs (measured 4.04e-5 at 32 layers).  In bf16 one flipped rounding spreads through
+# all 32 random-weight layers, so the kernel path is held to a multiple of the noise floor measured in the
+# same run: the plain path against itself with y scaled by 1 + 1e-7 N(0, 1), a sum-order-sized change.
+RWKV_F32_LOGITS_TOL = 1e-3
+RWKV_BF16_NOISE_MULT = 2.0
 
 GRAD_REL_TOL = 2e-2  # per-leaf relative L2 of the 1-layer train-step gradients, kernel vs plain path
 
 # serving shape: the first slice's path
 BATCH, PROMPT, NEW_TOKENS, ROUNDS, LAYERS, VIRTUAL_RANKS = 4, 256, 32, 2, 4, 8
-# training shape: this slice's path (C = round8(ceil(2048 * 2 / 8 * 1.25)) = 640 slots per expert)
+# training shape: the second slice's path (C = round8(ceil(2048 * 2 / 8 * 1.25)) = 640 slots per expert)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_C = 8, 256, 2, 8, 640
 PEAK_LR, WARMUP = 3e-4, 2
+# RWKV6-7B serving shape: the third slice's path, full width and all 32 layers
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_ROUNDS, RWKV_CHECK_PROMPT = 4, 1024, 32, 2, 256
+# K5 vs plain: both f32 throughout (bf16 r/k/v widened first); only the order of the 64-term sums differs
+WKV_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -72,10 +98,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """Least time in ms for the work: the larger of bytes over the memory
-    rate and operations over the bf16 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    rate and operations over the peak for their type (default bf16)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -93,6 +119,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as k4
     from repro_torch.kernels.moe_gemm import ops as k1
+    from repro_torch.kernels.rwkv_wkv import ops as k5
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import plan_table, train
     from repro_torch.models import Model
@@ -155,7 +182,7 @@ def main() -> None:
     COUNTED = {
         "moe_gemm_grouped": k1.moe_gemm, "flash_attention_fwd": k4.flash_attention,
         "moe_gemm_grouped_dgrad": k1.moe_gemm_dgrad, "moe_gemm_grouped_wgrad": k1.moe_gemm_wgrad,
-        "moe_gemm_ungrouped": k1.moe_gemm_ungrouped,
+        "moe_gemm_ungrouped": k1.moe_gemm_ungrouped, "wkv6": k5.wkv6,
     }
 
     def reset_counts():
@@ -324,7 +351,7 @@ def main() -> None:
     err3b = close(out.detach(), k1.moe_gemm_plain(x, wg, wu, wd), "K3b ungrouped forward")
     for leaf, want, n in zip(leaves, k1.moe_gemm_bwd_plain(go, x, wg, wu, wd, all_live), ("dx", "dwg", "dwu", "dwd")):
         (close if n == "dx" else close_l2)(leaf.grad, want, f"K3b backward {n}")
-    del leaves, out
+    del leaves, out, leaf, want
     b_ms, b_by = bound(6.0 * d * f * e * c, 2 * e * c * d * 2 + e * 3 * d * f * 2)
 
     def lib_swiglu():
@@ -479,49 +506,257 @@ def main() -> None:
 
     # where the time of one more train step goes: a torch.profiler trace of
     # the device's kernels (one stream, so their times add up to busy time)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
-        traced = train(model, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, virtual_ranks=VIRTUAL_RANKS, peak_lr=PEAK_LR, warmup=WARMUP)
-    kernel_us: dict[str, list] = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernel_us.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
-    busy_ms = sum(sum(v) for v in kernel_us.values()) / 1e3
-    step_ms = traced.step_ms[0]
-    if kernel_us:
-        print(f"train step trace: {step_ms:.1f} ms wall, device busy {busy_ms:.1f} ms ({100 * busy_ms / step_ms:.1f}%), "
+    elementwise = ("elementwise", "reduce", "copy", "Fill", "index", "scatter", "gather", "sort", "softmax",
+                   "cumsum", "cat", "where")
+    cublas = ("gemm", "nvjet", "cutlass", "xmma")
+
+    def trace_report(prof, wall_ms: float, what: str, groups: dict) -> dict:
+        """Print the device busy share and device time by kernel group (first
+        match wins); returns group -> kernel times in us."""
+        kernel_us: dict[str, list] = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                kernel_us.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+        if not kernel_us:
+            print(f"{what}: {wall_ms:.1f} ms wall, device busy not measured (the profiler recorded no device events)")
+            return {}
+        busy_ms = sum(sum(v) for v in kernel_us.values()) / 1e3
+        print(f"{what}: {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
               f"{sum(len(v) for v in kernel_us.values())} kernel launches")
-        groups = {  # first match wins: the wgrad kernels' names contain K1's
-            "K2/K3 silu_grads": ("silu_grads_kernel",), "K2 dgrad": ("dgrad_kernel",),
-            "K3 wgrad": ("wgrad_gate_up_kernel", "wgrad_down_kernel"), "K1 gate_up": ("gate_up_kernel",),
-            "K1 down": ("down_kernel",), "cuBLAS GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
-            "elementwise and reductions": ("elementwise", "reduce", "copy", "Fill", "index", "scatter", "gather",
-                                           "sort", "softmax", "cumsum", "cat", "where"),
-        }
         totals: dict[str, list] = {}
         for name, v in kernel_us.items():
             group = next((g for g, keys in groups.items() if any(k in name for k in keys)), "other")
             totals.setdefault(group, []).extend(v)
         for group, v in sorted(totals.items(), key=lambda kv: -sum(kv[1])):
             print(f"  {sum(v) / 1e3:8.2f} ms  x{len(v):<5d} {group}")
-    else:
-        print(f"train step trace: {step_ms:.1f} ms wall, device busy not measured (the profiler recorded no device events)")
+        return totals
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        traced = train(model, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, virtual_ranks=VIRTUAL_RANKS, peak_lr=PEAK_LR, warmup=WARMUP)
+    trace_report(prof, traced.step_ms[0], "train step trace", {  # the wgrad kernels' names contain K1's
+        "K2/K3 silu_grads": ("silu_grads_kernel",), "K2 dgrad": ("dgrad_kernel",),
+        "K3 wgrad": ("wgrad_gate_up_kernel", "wgrad_down_kernel"), "K1 gate_up": ("gate_up_kernel",),
+        "K1 down": ("down_kernel",), "cuBLAS GEMM": cublas, "elementwise and reductions": elementwise,
+    })
     del model
     torch.cuda.empty_cache()
 
-    # 9. the kernels line, then the result line
-    path_launches = {name: {"serve": launches[name], "train": train_launches[name]} for name in COUNTED}
+    # 9. K5 at the RWKV6-7B prefill shape from S = 0 (two decay draws: the
+    # model's range exp(-exp(-2 + noise)) and the JAX test's 0.45-0.95),
+    # then T = 1 and T = 37 from the carried state
+    rcfg = get_config("rwkv6-7b")
+    hd5, h5, b5 = rcfg.rwkv_head_dim, rcfg.d_model // rcfg.rwkv_head_dim, RWKV_BATCH
+    wgen = torch.Generator(device=dev).manual_seed(2)
+
+    def wkv_inputs(t: int, wide_w: bool):
+        shape = (b5, h5, t, hd5)
+        r, k, v = (torch.randn(shape, generator=wgen, device=dev).to(torch.bfloat16) for _ in range(3))
+        noise = torch.randn(shape, generator=wgen, device=dev)
+        w = torch.sigmoid(noise) * 0.5 + 0.45 if wide_w else torch.exp(-torch.exp(-2.0 + 0.5 * noise))
+        return r, k, v, w
+
+    def close_f32(out, ref, what: str) -> float:
+        if not torch.isfinite(out).all():
+            fail(f"{what}: non-finite output")
+        err = (out - ref).abs()
+        if float((err - WKV_TOL * ref.abs()).max()) > WKV_TOL:
+            fail(f"{what}: max |kernel - plain| {float(err.max()):.4g} beyond {WKV_TOL} + {WKV_TOL}*|plain|")
+        return float(err.max())
+
+    def wkv_cost(t: int, carried: bool) -> tuple[float, str]:
+        n = b5 * h5 * t * hd5
+        state = b5 * h5 * hd5 * hd5 * 4
+        nbytes = 3 * n * 2 + n * 4 + h5 * hd5 * 4 + n * 4 + state * (2 if carried else 1)
+        return bound(4.0 * hd5 * hd5 * b5 * h5 * t, nbytes, PEAK_F32_FLOPS)
+
+    u5 = torch.randn((h5, hd5), generator=wgen, device=dev) * 0.1
+    k5_err, k5_rows = 0.0, {}
+    for label, wide in (("0.45-0.95 w", True), ("model-range w", False)):  # the model-range inputs stay for timing
+        r, k, v, w = wkv_inputs(RWKV_PROMPT, wide)
+        y, s_carried = k5.wkv6(r, k, v, w, u5)  # the wrapper, as the model calls it
+        torch.cuda.synchronize()
+        y_ref, s_ref = k5.wkv6_plain(r, k, v, w, u5)
+        err = max(close_f32(y, y_ref, f"K5 prefill ({label}) y"), close_f32(s_carried, s_ref, f"K5 prefill ({label}) S"))
+        k5_err = max(k5_err, err)
+        print(f"K5 prefill ({label}): y and S_final max_abs_err {err:.3g} (tol {WKV_TOL} + {WKV_TOL}*|plain|), "
+              f"max |y| {float(y_ref.abs().max()):.4g}")
+    b_ms, b_by = wkv_cost(RWKV_PROMPT, False)
+    k5_rows["prefill"] = {
+        "shape": f"r/k/v[{b5},{h5},{RWKV_PROMPT},{hd5}] bf16, w f32, S from 0",
+        "ms": cuda_ms(lambda: k5._launch(r, k, v, w, u5, None), 20),
+        "plain_ms": cuda_ms(lambda: k5.wkv6_plain(r, k, v, w, u5), 2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    for t in (1, 37):
+        r, k, v, w = wkv_inputs(t, False)
+        y, s_fin = k5.wkv6(r, k, v, w, u5, s_carried)
+        torch.cuda.synchronize()
+        y_ref, s_ref = k5.wkv6_plain(r, k, v, w, u5, s_carried)
+        err = max(close_f32(y, y_ref, f"K5 T={t} carried y"), close_f32(s_fin, s_ref, f"K5 T={t} carried S"))
+        k5_err = max(k5_err, err)
+        print(f"K5 T={t} from the carried state: y and S_final max_abs_err {err:.3g} (tol {WKV_TOL} + {WKV_TOL}*|plain|)")
+    b_ms, b_by = wkv_cost(1, True)
+    k5_rows["decode"] = {
+        "shape": f"r/k/v[{b5},{h5},1,{hd5}] bf16, w f32, S carried",
+        "ms": cuda_ms(lambda: k5._launch(r[:, :, :1], k[:, :, :1], v[:, :, :1], w[:, :, :1], u5, s_carried), 200),
+        "plain_ms": cuda_ms(lambda: k5.wkv6_plain(r[:, :, :1], k[:, :, :1], v[:, :, :1], w[:, :, :1], u5, s_carried), 50),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    for label, row in k5_rows.items():
+        print(f"K5 {label}: {row['shape']} | kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
+              f"library: none | bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del r, k, v, w, y, y_ref, s_fin, s_ref, s_carried, u5
+
+    # 10. serve full-width RWKV6-7B at all 32 layers: the third slice's main path
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    rmodel = Model(rcfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(prm.numel() for prm in rmodel.parameters())
+    param_gb = sum(prm.numel() * prm.element_size() for prm in rmodel.parameters()) / 1e9
+    print(f"rwkv model: {rcfg.name} {rcfg.n_layers} layers, {n_params / 1e9:.3f} B params ({param_gb:.2f} GB; "
+          f"{before_gb:.2f} GB was allocated before), init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rres = serve(rmodel, batch=RWKV_BATCH, prompt_len=RWKV_PROMPT, new_tokens=RWKV_NEW, rounds=RWKV_ROUNDS,
+                 controller=True, seed=0)
+    rwkv_launches = read_counts()
+    rpeak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = dict.fromkeys(COUNTED, 0)
+    expect["wkv6"] = RWKV_ROUNDS * (1 + RWKV_NEW) * rcfg.n_layers
+    for r in range(RWKV_ROUNDS):
+        print(
+            f"rwkv serve round {r}: prefill {rres.prefill_ms[r]:.1f} ms "
+            f"({RWKV_BATCH * RWKV_PROMPT / rres.prefill_ms[r] * 1e3:.0f} tok/s) | decode {rres.decode_ms[r]:.1f} ms "
+            f"({rres.decode_tok_s(RWKV_BATCH, RWKV_NEW)[r]:.1f} tok/s, {rres.decode_ms[r] / RWKV_NEW:.2f} ms/step)"
+        )
+    print(f"rwkv serve peak memory allocated: {rpeak_gb:.2f} GB ({rpeak_gb - before_gb:.2f} GB above what was "
+          f"allocated before the model)")
+    print(f"rwkv serve launches: {rwkv_launches} (expected {expect})")
+    if rwkv_launches != expect:
+        fail(f"RWKV serving path launches {rwkv_launches}, expected {expect}")
+    if rres.table is not None or (rres.admitted, rres.dropped, rres.routed) != (0.0, 0.0, 0.0):
+        fail(f"RWKV serving planned a table or counted MoE choices: {rres.admitted}, {rres.dropped}, {rres.routed}")
+    if rres.tokens.shape != (RWKV_ROUNDS, RWKV_BATCH, RWKV_NEW) or int(rres.tokens.min()) < 0 \
+            or int(rres.tokens.max()) >= rcfg.vocab_size:
+        fail(f"RWKV generated tokens out of range or misshapen: {tuple(rres.tokens.shape)}")
+    if rres.first_logits.shape != (RWKV_BATCH, rcfg.vocab_size) or not torch.isfinite(rres.first_logits).all():
+        fail("RWKV prefill logits misshapen or non-finite")
+
+    # kernel path vs plain path, prefill at a shorter prompt.  In bf16 the 32
+    # random-weight layers amplify any difference in the recurrence's f32
+    # sum order through flipped bf16 roundings (a 1e-7 relative change of y
+    # moves the logits by ~0.1), so (a) K5 is held against its plain version
+    # on every layer's own inputs inside the bf16 prefill, (b) the bf16
+    # logits gap is held within RWKV_BF16_NOISE_MULT times that noise floor,
+    # measured here, and (c) the logits are held kernel vs plain on the same
+    # seeded model in f32.
+    rprompts = torch.randint(0, rcfg.vocab_size, (RWKV_BATCH, RWKV_CHECK_PROMPT), generator=wgen, device=dev)
+
+    def rwkv_prefill_logits(m):
+        return m.prefill(rprompts, m.init_cache(RWKV_BATCH, RWKV_CHECK_PROMPT, m.dtype))[0].float()
+
+    def row_rel(a, b) -> float:
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+
+    layer_errs = []
+
+    def held_wkv6(r, k, v, w, u, s0=None):
+        y, s_fin = k5._launch(r, k, v, w, u, s0)  # a comparison launch: not counted
+        y_ref, s_ref = k5.wkv6_plain(r, k, v, w, u, s0)
+        n = len(layer_errs)
+        layer_errs.append(max(close_f32(y, y_ref, f"K5 in layer {n} y"), close_f32(s_fin, s_ref, f"K5 in layer {n} S")))
+        return y, s_fin
+
+    with mock.patch.object(k5, "wkv6", held_wkv6):
+        kernel_logits = rwkv_prefill_logits(rmodel)
+    if len(layer_errs) != rcfg.n_layers or not torch.isfinite(kernel_logits).all():
+        fail(f"RWKV bf16 prefill: K5 held in {len(layer_errs)} of {rcfg.n_layers} layers, or non-finite logits")
+    print(f"K5 inside the {rcfg.n_layers}-layer bf16 prefill (prompt {RWKV_CHECK_PROMPT}), on each layer's own "
+          f"strided inputs: max_abs_err {max(layer_errs):.3g} (tol {WKV_TOL} + {WKV_TOL}*|plain|)")
+    with mock.patch.object(k5, "wkv6", k5.wkv6_plain):
+        plain_logits = rwkv_prefill_logits(rmodel)
+    ngen = torch.Generator(device=dev).manual_seed(3)
+
+    def perturbed_plain(*args):
+        y, s_fin = k5.wkv6_plain(*args)
+        return y * (1 + 1e-7 * torch.randn(y.shape, generator=ngen, device=dev)), s_fin
+
+    with mock.patch.object(k5, "wkv6", perturbed_plain):
+        noise_logits = rwkv_prefill_logits(rmodel)
+    rel, floor = row_rel(kernel_logits, plain_logits), row_rel(noise_logits, plain_logits)
+    print(f"rwkv bf16 prefill logits (prompt {RWKV_CHECK_PROMPT}): kernel vs plain path max row rel L2 {rel:.3g} "
+          f"(tol {RWKV_BF16_NOISE_MULT} x the noise floor), same argmax "
+          f"{int((kernel_logits.argmax(-1) == plain_logits.argmax(-1)).sum())}/{RWKV_BATCH}; the noise floor, plain "
+          f"vs plain with y * (1 + 1e-7 N(0, 1)): {floor:.3g}")
+    if not torch.isfinite(plain_logits).all() or rel > RWKV_BF16_NOISE_MULT * floor:
+        fail(f"RWKV bf16 prefill logits of the kernel path differ from the plain path by {rel:.3g}, more than "
+             f"{RWKV_BF16_NOISE_MULT} x the noise floor {floor:.3g}")
+    del kernel_logits, plain_logits, noise_logits
+
+    # where RWKV serving time goes: one more prefill, then 8 decode steps, each traced
+    rwkv_groups = {"K5 wkv6": ("wkv6_kernel",), "cuBLAS GEMM": cublas, "elementwise and reductions": elementwise}
+    caches = rmodel.init_cache(RWKV_BATCH, RWKV_PROMPT + 8)
+    prompts = torch.randint(0, rcfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT), generator=wgen, device=dev)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        logits, caches = rmodel.prefill(prompts, caches)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    trace_report(prof, wall, "rwkv prefill trace", rwkv_groups)
+    token = torch.argmax(logits, dim=-1)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(8):
+            logits, caches = rmodel.decode_step(token, caches, RWKV_PROMPT + i)
+            token = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    k5_us = trace_report(prof, wall, "rwkv decode trace (8 steps)", rwkv_groups).get("K5 wkv6", [])
+    # back to back, the wrapper's host work outlasts this small kernel, so the
+    # CUDA-event time above is the host's; the trace gives the device's own
+    k5_rows["decode"]["device_ms_in_trace"] = sum(k5_us) / len(k5_us) / 1e3 if k5_us else None
+    if k5_us:
+        print(f"K5 decode device time in the trace: {sum(k5_us) / len(k5_us) / 1e3:.4f} ms per launch "
+              f"({len(k5_us)} launches; bound {k5_rows['decode']['bound_ms']:.4f} ms)")
+    del rmodel, caches, logits
+    torch.cuda.empty_cache()
+
+    # the same seeded 32-layer model in f32 (30 GB): kernel path vs plain path
+    fmodel = Model(rcfg, device=dev, dtype=torch.float32, seed=0)
+    kernel_logits = rwkv_prefill_logits(fmodel)
+    with mock.patch.object(k5, "wkv6", k5.wkv6_plain):
+        plain_logits = rwkv_prefill_logits(fmodel)
+    rel = row_rel(kernel_logits, plain_logits)
+    same_top1 = int((kernel_logits.argmax(-1) == plain_logits.argmax(-1)).sum())
+    print(f"rwkv f32 prefill logits kernel vs plain path ({rcfg.n_layers} layers, prompt {RWKV_CHECK_PROMPT}): "
+          f"max row rel L2 {rel:.3g} (tol {RWKV_F32_LOGITS_TOL}), max abs {(kernel_logits - plain_logits).abs().max().item():.3g}, "
+          f"same argmax {same_top1}/{RWKV_BATCH}")
+    if not torch.isfinite(kernel_logits).all() or rel > RWKV_F32_LOGITS_TOL:
+        fail(f"RWKV f32 prefill logits of the kernel path differ from the plain path: rel L2 {rel:.3g}")
+    del fmodel, kernel_logits, plain_logits
+    torch.cuda.empty_cache()
+
+    # 11. the kernels line, then the result line
+    path_launches = {
+        name: {"serve": launches[name], "train": train_launches[name], "rwkv_serve": rwkv_launches[name]}
+        for name in COUNTED
+    }
     kernels = [
         dict(
             name="moe_gemm_grouped", route="cuda", source="src/repro_torch/csrc/moe_gemm.cu",
             replaces="src/repro/kernels/moe_gemm/kernel.py:101",
-            launches=launches["moe_gemm_grouped"] + train_launches["moe_gemm_grouped"],
+            launches=sum(path_launches["moe_gemm_grouped"].values()),
             launches_by_path=path_launches["moe_gemm_grouped"],
             **{key: k1_rows["prefill"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             shape=k1_rows["prefill"]["shape"], decode=k1_rows["decode"],
         ),
         dict(
             name="flash_attention_fwd", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention/kernel.py:77", launches=launches["flash_attention_fwd"],
+            replaces="src/repro/kernels/flash_attention/kernel.py:77",
+            launches=sum(path_launches["flash_attention_fwd"].values()),
             launches_by_path=path_launches["flash_attention_fwd"],
             **{key: k4_row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             shape=k4_row["shape"],
@@ -530,7 +765,7 @@ def main() -> None:
             dict(
                 name=f"moe_gemm_grouped_{name}", route="cuda", source="src/repro_torch/csrc/moe_gemm_bwd.cu",
                 replaces=f"src/repro/kernels/moe_gemm/kernel.py:{line}",
-                launches=train_launches[f"moe_gemm_grouped_{name}"],
+                launches=sum(path_launches[f"moe_gemm_grouped_{name}"].values()),
                 launches_by_path=path_launches[f"moe_gemm_grouped_{name}"],
                 **{key: k23_rows[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
             )
@@ -539,8 +774,15 @@ def main() -> None:
         dict(
             name="moe_gemm_ungrouped", route="cuda", source="src/repro_torch/csrc/moe_gemm.cu",
             replaces="src/repro/kernels/moe_gemm/kernel.py:394", launches=k3b_path["moe_gemm_ungrouped"],
-            launches_by_path={"ungrouped forward + backward": k3b_path["moe_gemm_ungrouped"], "serve": 0, "train": 0},
+            launches_by_path={"ungrouped forward + backward": k3b_path["moe_gemm_ungrouped"],
+                              **path_launches["moe_gemm_ungrouped"]},
             **{key: k3b_row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        ),
+        dict(
+            name="wkv6", route="cuda", source="src/repro_torch/csrc/rwkv_wkv.cu",
+            replaces="src/repro/kernels/rwkv_wkv/kernel.py:54", launches=sum(path_launches["wkv6"].values()),
+            launches_by_path=path_launches["wkv6"], max_abs_err=k5_err, library_ms=None,
+            **k5_rows["prefill"], decode=k5_rows["decode"],
         ),
     ]
     print(json.dumps({"kernels": kernels}))

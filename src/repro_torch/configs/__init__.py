@@ -1,6 +1,6 @@
 """Architecture registry: importing this package registers the configs.
 
-Only Mixtral-8x7B is ported so far; ``smoke_config`` gives the reduced
+Mixtral-8x7B and RWKV6-7B are ported so far; ``smoke_config`` gives the reduced
 same-family variant the CPU tests run (same rule as ``repro.configs``).
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import ARCHS, ModelConfig, MoECfg, get_config, register
-from repro_torch.configs import mixtral_8x7b  # noqa: F401  (registers)
+from repro_torch.configs import mixtral_8x7b, rwkv6_7b  # noqa: F401  (registers)
 
 
 def smoke_config(cfg: ModelConfig | str) -> ModelConfig:
@@ -38,6 +38,7 @@ def smoke_config(cfg: ModelConfig | str) -> ModelConfig:
         vocab_size=256,
         sliding_window=8 if cfg.sliding_window else None,
         moe=moe,
+        rwkv_head_dim=16,
         remat="none",
     )
 

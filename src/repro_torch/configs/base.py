@@ -54,6 +54,7 @@ class ModelConfig:
     ffn_gelu: bool = False
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    rwkv_head_dim: int = 64
     # training activation checkpointing: "block" recomputes each layer's
     # forward in the backward (torch.utils.checkpoint), "none" keeps it
     remat: Literal["none", "block"] = "block"
@@ -62,8 +63,13 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def layer_kind(self, idx: int) -> str:
+        """'attn' | 'rwkv6' for layer idx (the port has no hybrid interleave;
+        ``models.model.check_supported`` rejects ``hybrid``)."""
+        return self.block
+
     def ffn_kind(self, idx: int) -> str:
-        """'dense' | 'moe' for layer idx."""
+        """'dense' | 'moe' for layer idx (rwkv6 uses its own channel mix)."""
         if self.moe is not None and idx % self.moe.every == self.moe.every - 1:
             return "moe"
         return "dense"

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "check", "stream_handle"
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels for a source checkout (src/repro_torch/kernels/build.py)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("moe_gemm", "moe_gemm_bwd", "flash_attention")
+SOURCES = ("moe_gemm", "moe_gemm_bwd", "flash_attention", "rwkv_wkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -10,7 +10,9 @@ dispatch consumes table rows, e.g. ``phase_pipelined``), runs
 ``decode_step``s with that table.  The estimate for round ``r`` is
 ``tokens * DriftScenario(drift).expert_probs(r)`` broadcast to
 ``[L, 1, E]`` with ``tokens = batch * prompt_len * top_k``, as the JAX
-launcher feeds its controller.  Counterpart of ``repro/launch/serve.py``;
+launcher feeds its controller.  An arch without MoE (``rwkv6-7b``) plans
+no table: the controller is disabled, as the JAX launcher's is, and the
+MoE counts stay 0.  Counterpart of ``repro/launch/serve.py``;
 the controller's EMA and re-planning between rounds come with the
 host-controller slice, so only ``--drift none`` runs here.
 """
@@ -43,10 +45,10 @@ class ServeResult:
     plan_ms: list[float]
     tokens: torch.Tensor  # [rounds, B, new_tokens] generated ids (host)
     first_logits: torch.Tensor  # round 0 prefill last-token logits [B, V] (host)
-    admitted: float  # plan-admitted expert choices over all layers and steps
+    admitted: float  # plan-admitted expert choices over all layers and steps (0 without MoE)
     dropped: float  # of those, cut at packing (capacity overflow)
     routed: float  # all expert choices (pre-drop demand)
-    table: object  # the last round's ScheduleTable (or None)
+    table: object  # the last round's ScheduleTable (None without a controller or MoE)
 
     def decode_tok_s(self, batch: int, new_tokens: int) -> list[float]:
         return [batch * new_tokens / (ms / 1e3) for ms in self.decode_ms]
@@ -84,11 +86,15 @@ def serve(
 ) -> ServeResult:
     """Serve ``rounds`` batches of random prompts (made from ``seed``)."""
     cfg, device = model.cfg, model.device
+    if controller and cfg.moe is None:
+        log.info("controller disabled: arch %s has no MoE", cfg.name)
+        controller = False
     use_table = controller and cfg.moe.dispatch in TABLE_FABRICS
     prefill_ms, decode_ms, plan_ms, tokens = [], [], [], []
     first_logits = table = None
-    half = max(rounds // 2, 1)  # the JAX serving controller's scenario settings
-    scenario = DriftScenario("none", cfg.moe.n_experts, shift_step=half, window=half, seed=0)
+    if controller:
+        half = max(rounds // 2, 1)  # the JAX serving controller's scenario settings
+        scenario = DriftScenario("none", cfg.moe.n_experts, shift_step=half, window=half, seed=0)
     totals = torch.zeros(3, dtype=torch.float64, device=device)  # admitted, dropped, routed
     for r in range(rounds):
         t0 = time.perf_counter()
@@ -126,6 +132,8 @@ def serve(
         decode_ms.append((time.perf_counter() - t0) * 1e3)
         tokens.append(torch.stack(out, dim=1).cpu())
         for st in step_stats:
+            if st is None:  # no MoE layer
+                continue
             totals += torch.stack(
                 [st["admitted"].sum(), st["dropped"].sum(), st["routing"].sum()]
             ).double()

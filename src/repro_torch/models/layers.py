@@ -1,4 +1,5 @@
-"""Core layers: device choice, parameter init, rmsnorm, dense, embed, rope.
+"""Core layers: device choice, parameter init, rmsnorm, groupnorm, dense,
+embed, rope.
 
 The cast convention: the JAX package keeps f32 parameters and casts each
 weight to ``COMPUTE_DTYPE`` right before use.  The port stores those
@@ -20,7 +21,9 @@ __all__ = [
     "resolve_device",
     "normal_param",
     "ones_param",
+    "full_param",
     "rmsnorm",
+    "groupnorm",
     "dense",
     "embed",
     "rope",
@@ -54,6 +57,11 @@ def ones_param(d: int, *, device) -> nn.Parameter:
     return nn.Parameter(torch.ones(d, dtype=torch.float32, device=device), requires_grad=False)
 
 
+def full_param(shape, value: float, *, device) -> nn.Parameter:
+    """An f32 parameter filled with ``value``."""
+    return nn.Parameter(torch.full(shape, value, dtype=torch.float32, device=device), requires_grad=False)
+
+
 class _RMSNorm(torch.autograd.Function):
     """f32 RMS norm whose backward computes in f32 and hands ``dx`` back in
     ``x.dtype`` and ``dscale`` in the scale's dtype (JAX ``_rmsnorm_bwd``)."""
@@ -80,6 +88,17 @@ class _RMSNorm(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """f32 RMS norm, result in x.dtype."""
     return _RMSNorm.apply(x, scale, eps)
+
+
+def groupnorm(x: torch.Tensor, scale, bias, *, groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel dim in f32 with the population variance
+    (as ``jnp.var``), result in x.dtype (RWKV6's per-head norm)."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, groups, d // groups)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y.reshape(*lead, d) * scale + bias).to(x.dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

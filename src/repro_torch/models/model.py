@@ -28,10 +28,13 @@ __all__ = ["Model", "check_supported"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs RoPE attention + MoE blocks (Mixtral's pattern)."""
+    """The port runs RoPE attention + MoE blocks (Mixtral's pattern) and
+    RWKV6 blocks without MoE."""
+    rwkv = cfg.block == "rwkv6"
     unsupported = {
-        "moe": cfg.moe is None,
-        "block": cfg.block != "attn" or cfg.hybrid is not None,
+        "dense FFN": cfg.moe is None and not rwkv,
+        "moe with rwkv6": rwkv and cfg.moe is not None,
+        "block": cfg.block not in ("attn", "rwkv6") or cfg.hybrid is not None,
         "pos_embedding": cfg.pos_embedding != "rope",
         "qkv_bias": cfg.qkv_bias,
         "frontend": cfg.frontend != "none",
@@ -125,8 +128,8 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor, caches: list[dict], *, schedule=None, collect_stats=False):
         """Process prompts [B, S], filling ``caches`` in place.  Returns
         (last-token logits [B, V] f32, caches), plus the per-layer MoE
-        stats (``routing`` [L, 1, E], ``dropped`` / ``admitted`` [L, 1])
-        with ``collect_stats``."""
+        stats (``routing`` [L, 1, E], ``dropped`` / ``admitted`` [L, 1];
+        None for a model without MoE) with ``collect_stats``."""
         x = embed(self.embed, tokens, self.dtype)
         stats = []
         for p, cache, row in zip(self.layers, caches, stack.schedule_rows(schedule, self.cfg)):

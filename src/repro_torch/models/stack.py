@@ -4,7 +4,9 @@ stack checkpoints each block under ``cfg.remat == "block"``
 (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of a period),
 so the backward recomputes the block's forward, K1 included.
 
-Only attention + MoE/SwiGLU blocks are ported (Mixtral's pattern).
+Two block kinds are ported, chosen by ``cfg.layer_kind(j)``: attention +
+MoE/SwiGLU (Mixtral's pattern) and RWKV6 (time mix + channel mix, whose
+per-layer state is the dict of ``rwkv.rwkv_init_state``; serving only).
 Counterpart of ``repro/models/stack.py``.
 """
 
@@ -17,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.schedule import ScheduleTable
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv
 from repro_torch.models.layers import ones_param, rmsnorm
 from repro_torch.models.moe import moe_apply, moe_init
 
@@ -27,11 +30,19 @@ __all__ = [
 
 
 class Block(nn.Module):
+    """``ln1``, ``mixer`` and ``ln2``, plus ``ffn`` for an attention block;
+    an rwkv6 block's channel mix lives in its mixer."""
+
     def __init__(self, cfg: ModelConfig, j: int, *, gen, device, dtype):
         super().__init__()
+        self.kind = cfg.layer_kind(j)
+        self.ln1 = ones_param(cfg.d_model, device=device)
+        if self.kind == "rwkv6":
+            self.mixer = rwkv.RWKV(cfg, gen=gen, device=device, dtype=dtype)
+            self.ln2 = ones_param(cfg.d_model, device=device)
+            return
         if cfg.ffn_kind(j) != "moe":
             raise NotImplementedError("dense-FFN blocks are not ported yet (ROADMAP: other mixers)")
-        self.ln1 = ones_param(cfg.d_model, device=device)
         self.mixer = attn.attn_init(cfg, gen=gen, device=device, dtype=dtype)
         self.ln2 = ones_param(cfg.d_model, device=device)
         self.ffn = moe_init(cfg, gen=gen, device=device, dtype=dtype)
@@ -43,6 +54,8 @@ def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype) -> Block:
 
 def block_train(p: Block, cfg: ModelConfig, x, schedule, *, collect_stats=False):
     """One training layer over x [B, S, d].  Returns (x, stats-or-None)."""
+    if p.kind != "attn":
+        raise NotImplementedError(f"training {p.kind} blocks is not ported yet (ROADMAP: RWKV training)")
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
     x = x + attn.attn_train(p.mixer, cfg, h)
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
@@ -67,8 +80,12 @@ def stack_train(layers, cfg: ModelConfig, x, schedule, *, collect_stats=False):
 
 
 def block_prefill(p: Block, cfg: ModelConfig, x, cache: dict, schedule, *, collect_stats=False):
-    """One layer over the prompt.  Returns (x, cache, stats-or-None)."""
+    """One layer over the prompt, filling ``cache`` in place.  Returns
+    (x, cache, stats-or-None)."""
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
+    if p.kind == "rwkv6":
+        y, (x_tm, s) = rwkv.rwkv_time_mix(p.mixer, cfg, h)
+        return _rwkv_channel(p, cfg, x + y, cache, x_tm, s, None)
     y, cache = attn.attn_prefill(p.mixer, cfg, h, cache)
     x = x + y
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
@@ -77,13 +94,29 @@ def block_prefill(p: Block, cfg: ModelConfig, x, cache: dict, schedule, *, colle
 
 
 def block_decode(p: Block, cfg: ModelConfig, x, cache: dict, step: int, schedule, *, collect_stats=False):
-    """One decode layer.  Returns (x, cache, stats-or-None)."""
+    """One decode layer, updating ``cache`` in place.  Returns (x, cache,
+    stats-or-None)."""
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
+    if p.kind == "rwkv6":
+        y, (x_tm, s) = rwkv.rwkv_time_mix(p.mixer, cfg, h, state=(cache["x_tm"].to(h.dtype), cache["s"]))
+        return _rwkv_channel(p, cfg, x + y, cache, x_tm, s, cache["x_cm"])
     y, cache = attn.attn_decode(p.mixer, cfg, h, cache, step)
     x = x + y
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
     x, stats = _ffn(p, cfg, x, h, schedule, collect_stats)
     return x, cache, stats
+
+
+def _rwkv_channel(p: Block, cfg, x, cache: dict, x_tm, s, x_cm_last):
+    """The rwkv6 block after its time mix: channel mix, then the new state
+    (the tokens in the cache's dtype, S in f32) into ``cache``."""
+    h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
+    state = None if x_cm_last is None else x_cm_last.to(h.dtype)
+    y, x_cm = rwkv.rwkv_channel_mix(p.mixer, h, state=state)
+    cache["x_tm"] = x_tm.to(cache["x_tm"].dtype)
+    cache["s"] = s
+    cache["x_cm"] = x_cm.to(cache["x_cm"].dtype)
+    return x + y, cache, None
 
 
 def _ffn(p: Block, cfg, x, h, schedule, collect_stats):
@@ -94,8 +127,13 @@ def _ffn(p: Block, cfg, x, h, schedule, collect_stats):
 
 
 def stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16, device) -> list[dict]:
-    """One KV cache dict per layer."""
-    return [attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+    """One cache dict per layer: a KV cache for attention, the O(1) decode
+    state for rwkv6."""
+    return [
+        rwkv.rwkv_init_state(cfg, batch, dtype=dtype, device=device) if cfg.layer_kind(j) == "rwkv6"
+        else attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
+        for j in range(cfg.n_layers)
+    ]
 
 
 def schedule_rows(schedule, cfg: ModelConfig) -> list:
@@ -109,6 +147,8 @@ def schedule_rows(schedule, cfg: ModelConfig) -> list:
     return [schedule.row(l) for l in range(cfg.n_layers)]
 
 
-def stack_stats(per_layer: list[dict]) -> dict:
-    """Per-layer stats dicts -> one dict of [n_moe_layers, ...] tensors."""
-    return {key: torch.stack([s[key] for s in per_layer]) for key in per_layer[0]}
+def stack_stats(per_layer: list) -> dict | None:
+    """Per-layer stats dicts (None for a layer without MoE) -> one dict of
+    [n_moe_layers, ...] tensors, or None for a model without MoE."""
+    moe = [s for s in per_layer if s is not None]
+    return {key: torch.stack([s[key] for s in moe]) for key in moe[0]} if moe else None

@@ -4,10 +4,13 @@
 PyTorch cannot replay ``jax.random``, so parity runs load the JAX
 package's parameters.  The pytree is numpy arrays, ``{"embed":
 {"table"}, "head": {"w"}, "ln_f": {"scale"}, "stack": {"pos0": {...}}}``
-with block leaves stacked over ``n_periods``.  ``load_reference`` stores
-the weights JAX casts before use in ``param_dtype`` (default: the
-compute dtype; ``torch.float32`` for training masters); the router and
-the norm scales stay f32.  Every key is consumed; a leftover raises.
+with block leaves stacked over ``n_periods`` (one block per period: the
+port's two block kinds, Mixtral's attention + MoE and RWKV6, each have
+one).  ``load_reference`` stores the weights JAX casts before use in
+``param_dtype`` (default: the compute dtype; ``torch.float32`` for
+training masters); the router, the norm scales and RWKV6's mixes, LoRA
+weights, decay base and bonus stay f32.  Every key is consumed; a
+leftover raises.
 ``to_reference`` rebuilds that pytree from a model's parameters, or
 from their gradients, so tests compare leaf by leaf.
 """
@@ -18,22 +21,36 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv
 from repro_torch.models.model import Model
 
 __all__ = ["load_reference", "to_reference"]
 
-# port attribute path -> (JAX pytree path inside one block, keep f32?)
+# block kind -> port attribute path -> (JAX pytree path inside one block, keep f32?)
 _BLOCK_LEAVES = {
-    "ln1": (("ln1", "scale"), True),
-    "ln2": (("ln2", "scale"), True),
-    "mixer.q": (("mixer", "q", "w"), False),
-    "mixer.k": (("mixer", "k", "w"), False),
-    "mixer.v": (("mixer", "v", "w"), False),
-    "mixer.o": (("mixer", "o", "w"), False),
-    "ffn.router": (("ffn", "router", "w"), True),
-    "ffn.w_gate": (("ffn", "w_gate"), False),
-    "ffn.w_up": (("ffn", "w_up"), False),
-    "ffn.w_down": (("ffn", "w_down"), False),
+    "attn": {
+        "ln1": (("ln1", "scale"), True),
+        "ln2": (("ln2", "scale"), True),
+        "mixer.q": (("mixer", "q", "w"), False),
+        "mixer.k": (("mixer", "k", "w"), False),
+        "mixer.v": (("mixer", "v", "w"), False),
+        "mixer.o": (("mixer", "o", "w"), False),
+        "ffn.router": (("ffn", "router", "w"), True),
+        "ffn.w_gate": (("ffn", "w_gate"), False),
+        "ffn.w_up": (("ffn", "w_up"), False),
+        "ffn.w_down": (("ffn", "w_down"), False),
+    },
+    "rwkv6": {
+        "ln1": (("ln1", "scale"), True),
+        "ln2": (("ln2", "scale"), True),
+        **{
+            f"mixer.{n}": (("mixer", n), True)
+            for n in ("mu", "mix_w1", "mix_w2", "w0", "decay_w1", "decay_w2", "u", "cm_mu_k", "cm_mu_r")
+        },
+        "mixer.ln_x_scale": (("mixer", "ln_x", "scale"), True),
+        "mixer.ln_x_bias": (("mixer", "ln_x", "bias"), True),
+        **{f"mixer.{n}": (("mixer", n, "w"), False) for n in rwkv.DENSE},
+    },
 }
 _TOP_LEAVES = {
     "embed": (("embed", "table"), False),
@@ -59,8 +76,8 @@ def load_reference(
     model = Model(cfg, device=device, dtype=dtype, param_dtype=param_dtype, seed=None, requires_grad=requires_grad)
     stored = model.param_dtype
     leaves = _flatten(tree)
-    if cfg.moe is None or cfg.moe.every != 1:
-        raise NotImplementedError("transplant covers one block per period (Mixtral)")
+    if cfg.moe is not None and cfg.moe.every != 1:
+        raise NotImplementedError("transplant covers one block per period (Mixtral, RWKV6)")
 
     def put(param: torch.nn.Parameter, arr: np.ndarray, keep_f32: bool, name: str):
         if tuple(arr.shape) != tuple(param.shape):
@@ -70,7 +87,7 @@ def load_reference(
 
     for attr, (path, keep) in _TOP_LEAVES.items():
         put(getattr(model, attr), leaves.pop(path), keep, "/".join(path))
-    for attr, (path, keep) in _BLOCK_LEAVES.items():
+    for attr, (path, keep) in _BLOCK_LEAVES[cfg.layer_kind(0)].items():
         full = ("stack", "pos0") + path
         stacked = leaves.pop(full)
         if stacked.shape[0] != cfg.n_layers:
@@ -105,7 +122,11 @@ def to_reference(model_or_grads) -> dict:
     for attr, (path, _) in _TOP_LEAVES.items():
         _set(tree, path, arr(attr))
     n_layers = 1 + max(int(k.split(".")[1]) for k in named if k.startswith("layers."))
-    for attr, (path, _) in _BLOCK_LEAVES.items():
+    # the block kind whose leaves layer 0 holds
+    block = next((b for b in _BLOCK_LEAVES.values() if all(f"layers.0.{attr}" in named for attr in b)), None)
+    if block is None:
+        raise ValueError("layer 0's parameters match no ported block kind")
+    for attr, (path, _) in block.items():
         _set(tree, ("stack", "pos0") + path, np.stack([arr(f"layers.{l}.{attr}") for l in range(n_layers)]))
     if named:
         raise ValueError(f"parameters with no reference leaf: {sorted(named)}")

@@ -46,6 +46,7 @@ def test_every_module_is_found():
         "repro_torch.kernels.flash_attention.ops", "repro_torch.models.transplant", "repro_torch.launch.serve",
         "repro_torch.launch.train", "repro_torch.launch.dryrun", "repro_torch.train.train_step",
         "repro_torch.optim.adamw", "repro_torch.data.pipeline", "repro_torch.core.drift", "repro_torch.core.traffic",
+        "repro_torch.kernels.rwkv_wkv.ops", "repro_torch.models.rwkv",
     ):
         assert expected in names
 

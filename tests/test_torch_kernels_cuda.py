@@ -1,6 +1,6 @@
-"""The CUDA kernels K1, K2/K3 (its backward), K3b (ungrouped) and K4
-against their plain PyTorch versions on the card, at small and ragged
-shapes.  Skips without a CUDA device.  Run on
+"""The CUDA kernels K1, K2/K3 (its backward), K3b (ungrouped), K4 and K5
+(the WKV6 recurrence) against their plain PyTorch versions on the card,
+at small and ragged shapes.  Skips without a CUDA device.  Run on
 the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -11,7 +11,9 @@ an ulp.  The weight gradients (K3) are held by relative L2 (2e-3) and a
 max error of 2e-2 * max|plain|: kernel and plain version each round
 their own f32 da/du/h to bf16, a few tenths of a percent of those land
 one ulp apart, and one such element times a large x moves a single
-weight gradient by more than the elementwise bound.
+weight gradient by more than the elementwise bound.  K5 computes in f32
+on both sides (bf16 r/k/v are widened first): 1e-4, for the order of
+the 64-term sums.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.rwkv_wkv import wkv6, wkv6_plain
 from repro_torch.kernels.moe_gemm import (
     moe_gemm,
     moe_gemm_bwd,
@@ -180,3 +183,70 @@ def test_k4_kernel_takes_transposed_views(cuda_device):
     out = flash_attention(q, k, v, causal=True)
     ref = flash_attention_plain(q * (128**-0.5), k, v, causal=True)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _wkv_inputs(rng, b, h, t, device, layout="bhtd", dtype=torch.bfloat16):
+    """r/k/v ~ 0.5 N(0, 1) in ``dtype``, f32 w = exp(-exp(-2 + 0.5 N(0, 1)))
+    (the model's range), u ~ 0.1 N(0, 1).  ``layout="btdh"`` draws
+    [B, T, H, D] storage and returns its [B, H, T, D] view, as the model
+    hands them."""
+    d = 64
+    shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
+    r, k, v = (_randn(rng, shape, 0.5, device).to(dtype) for _ in range(3))
+    w = torch.from_numpy(np.exp(-np.exp(-2.0 + 0.5 * rng.standard_normal(shape))).astype(np.float32)).to(device)
+    if layout != "bhtd":
+        r, k, v, w = (x.transpose(1, 2) for x in (r, k, v, w))
+    u = torch.from_numpy((rng.standard_normal((h, d)) * 0.1).astype(np.float32)).to(device)
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 37, 1024])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("layout,dtype", [("bhtd", torch.bfloat16), ("btdh", torch.bfloat16), ("btdh", torch.float32)])
+def test_k5_kernel_matches_plain_on_card(cuda_device, t, carried, layout, dtype):
+    rng = np.random.default_rng(6)
+    b, h = 2, 3
+    r, k, v, w, u = _wkv_inputs(rng, b, h, t, cuda_device, layout, dtype)
+    s0 = None
+    if carried:
+        s0 = torch.from_numpy((rng.standard_normal((b, h, 64, 64)) * 0.3).astype(np.float32)).to(cuda_device)
+    before = wkv6.launches
+    y, s = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert y.shape == (b, h, t, 64) and s.shape == (b, h, 64, 64) and y.dtype == s.dtype == torch.float32
+    y_ref, s_ref = wkv6_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_ref, **WKV_TOL)
+    torch.testing.assert_close(s, s_ref, **WKV_TOL)
+
+
+@pytest.mark.cuda
+def test_k5_kernel_chains_through_the_state(cuda_device):
+    """Decode's T = 1 steps from the carried state equal one pass."""
+    r, k, v, w, u = _wkv_inputs(np.random.default_rng(7), 1, 2, 8, cuda_device)
+    y, s = wkv6(r, k, v, w, u)
+    state, ys = None, []
+    for i in range(8):
+        yi, state = wkv6(r[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1], w[:, :, i:i + 1], u, state)
+        ys.append(yi)
+    torch.testing.assert_close(torch.cat(ys, dim=2), y, **WKV_TOL)
+    torch.testing.assert_close(state, s, **WKV_TOL)
+
+
+@pytest.mark.cuda
+def test_k5_kernel_raises_for_other_head_sizes(cuda_device):
+    """D != 64 raises on a CUDA tensor instead of running the plain version."""
+    r = torch.zeros((1, 2, 4, 16), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.full((1, 2, 4, 16), 0.5, device=cuda_device)
+    u = torch.zeros((2, 16), device=cuda_device)
+    before = wkv6.launches
+    with pytest.raises(ValueError, match="head size 16"):
+        wkv6(r, r, r, w, u)
+    with pytest.raises(ValueError, match="w must be"):
+        wkv6(*(torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=cuda_device) for _ in range(4)),
+             torch.zeros((2, 64), device=cuda_device))
+    assert wkv6.launches == before
