@@ -27,12 +27,15 @@ def _tol(dtype):
 
 
 def _k1_inputs(e, c, d, f, counts, seed, dtype):
+    """``counts[i]``: expert i's live rows, ``n`` for rows [0, n) or a list
+    of ``(lo, hi)`` row ranges."""
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((e, c, d)) * 0.5).astype(np.float32)
     ws = [(rng.standard_normal(s) * 0.05).astype(np.float32) for s in ((e, d, f), (e, d, f), (e, f, d))]
     rv = np.zeros((e, c), bool)
     for i, ct in enumerate(counts):
-        rv[i, :ct] = True
+        for lo, hi in ct if isinstance(ct, list) else [(0, ct)]:
+            rv[i, lo:hi] = True
     port = [torch.from_numpy(a).to(dtype) for a in (x, *ws)]
     ref = [jnp.asarray(a).astype(JNP[dtype]) for a in (x, *ws)]
     return port, ref, rv
@@ -46,6 +49,9 @@ def _k1_inputs(e, c, d, f, counts, seed, dtype):
         (4, 128, 64, 128, [128, 70, 0, 8]),
         # decode-like: one 8-row tile per expert, some live, some dark
         (8, 8, 64, 128, [1, 0, 3, 0, 8, 2, 0, 1]),
+        # not a prefix: live rows only in the second 64-row tile of each 128 rows, so
+        # the first 64-row half of every 128-row block is dark and the second live
+        (3, 256, 64, 128, [[(64, 128), (192, 256)], [(70, 71), (200, 230)], [(127, 128)]]),
     ],
 )
 def test_k1_plain_matches_jax_kernel(e, c, d, f, counts, dtype):

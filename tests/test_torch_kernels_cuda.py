@@ -57,21 +57,27 @@ def _randn(rng, shape, scale, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "e,c,counts",
+    "e,c,d,f,counts",
     [
-        (4, 130, [130, 70, 0, 5]),  # full, partial, dark tiles and a ragged 2-row tail tile
-        (8, 8, [1, 0, 3, 0, 8, 2, 0, 1]),  # decode-like: C smaller than the row tile
+        (4, 130, 128, 256, [130, 70, 0, 5]),  # full, partial, dark tiles and a ragged 2-row tail tile
+        (8, 8, 128, 256, [1, 0, 3, 0, 8, 2, 0, 1]),  # decode-like: C smaller than the row tile
+        # live rows only in [64, 128): the first 64-row half of a 128-row block dark, the second live
+        (3, 192, 128, 192, [(64, 128), (70, 100), (0, 0)]),
+        # prefill-like: several K stages and n-tiles, a 256-wide down tile over d; full, partial and
+        # dark tiles and an all-dark expert
+        (4, 320, 512, 1024, [320, 200, 5, 0]),
+        (2, 1, 128, 256, [1, 0]),  # C = 1
     ],
 )
-def test_k1_kernel_matches_plain_on_card(cuda_device, e, c, counts):
+def test_k1_kernel_matches_plain_on_card(cuda_device, e, c, d, f, counts):
     rng = np.random.default_rng(2)
-    d, f = 128, 256
     x = _randn(rng, (e, c, d), 0.5, cuda_device)
     wg, wu = (_randn(rng, (e, d, f), 0.05, cuda_device) for _ in range(2))
     wd = _randn(rng, (e, f, d), 0.05, cuda_device)
     rv = torch.zeros((e, c), dtype=torch.bool, device=cuda_device)
     for i, ct in enumerate(counts):
-        rv[i, :ct] = True
+        lo, hi = ct if isinstance(ct, tuple) else (0, ct)
+        rv[i, lo:hi] = True
     before = moe_gemm.launches
     out = moe_gemm(x, wg, wu, wd, rv)
     torch.cuda.synchronize()
