@@ -44,7 +44,8 @@ __all__ = [
 ]
 
 ROW_TILE = 64  # BM in csrc/moe_gemm*.cu; the kernels report their own at launch
-MAX_ROW_TILES = 256  # csrc/moe_gemm_bwd.cu: wgrad lists an expert's live tiles in shared memory
+# csrc/moe_gemm_bwd.cu: row tiles per expert; wgrad lists the live ones of every expert in shared memory
+MAX_ROW_TILES, MAX_EXPERTS, MAX_LISTED = 256, 256, 4096
 
 
 def tile_occupancy(row_valid: torch.Tensor) -> torch.Tensor:
@@ -192,8 +193,10 @@ def _launch_silu_grads(go, x, w_gate, w_up, w_down, row_valid):
     """Launch 1 of the backward: ``(da, du, h)`` bf16 ``[E, C, F]`` on live
     tiles (dark tiles left unwritten; nothing reads them)."""
     e, c, d, f, rv = _check_args("moe_gemm backward", x, w_gate, w_up, w_down, row_valid, go)
-    if -(-c // ROW_TILE) > MAX_ROW_TILES:
-        raise ValueError(f"moe_gemm backward kernel: C ({c}) above {MAX_ROW_TILES} row tiles")
+    tiles = -(-c // ROW_TILE)
+    if tiles > MAX_ROW_TILES or e > MAX_EXPERTS or e * tiles > MAX_LISTED:
+        raise ValueError(f"moe_gemm backward kernel: E={e}, C={c} gives {tiles} row tiles per expert "
+                         f"(at most {MAX_ROW_TILES}, {MAX_LISTED} in all, {MAX_EXPERTS} experts)")
     da, du, h = (torch.empty((e, c, f), dtype=torch.bfloat16, device=x.device) for _ in range(3))
     err = _bwd_lib().moe_gemm_silu_grads(
         go.data_ptr(), x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),

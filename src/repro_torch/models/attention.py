@@ -113,13 +113,14 @@ def attn_flash(p: Attention, cfg: ModelConfig, x: torch.Tensor, *, offset: int =
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :] + offset
     q, k, v = _qkv(p, cfg, x, positions)
-    # the kernel wrapper scales q itself: undo _qkv's pre-scale (in the
-    # working dtype, so q is rounded twice, as in the JAX package)
-    q = q * (cfg.resolved_head_dim**0.5)
+    # the kernel wrapper scales q itself, after undoing _qkv's pre-scale
+    # (``prescale``, in the working dtype, so q is rounded twice, as in the
+    # JAX package); on the card both roundings happen in the kernel's Q load,
+    # and q, k, v are read as [B, H, S, D] views of their [B, S, H, D] storage
     out = k4.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=cfg.sliding_window,
-    )  # [B, H, S, D]
+        causal=True, window=cfg.sliding_window, prescale=cfg.resolved_head_dim**0.5,
+    )  # [B, H, S, D], its transpose dense on the card
     return _apply_out(p, out.transpose(1, 2)), (k, v, positions)
 
 

@@ -25,7 +25,7 @@ from repro_torch.models.moe import moe_apply, moe_init
 
 __all__ = [
     "Block", "block_init", "block_train", "block_prefill", "block_decode", "stack_train", "stack_cache",
-    "schedule_rows",
+    "moe_rows", "schedule_rows",
 ]
 
 
@@ -136,15 +136,27 @@ def stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloa
     ]
 
 
+def moe_rows(cfg: ModelConfig) -> list[int | None]:
+    """The table row of each layer: the MoE layers take rows 0, 1, ... in
+    layer order (JAX lays its rows out as [period, MoE position in the
+    period], ``moe_positions``: the same order), a non-MoE layer None."""
+    rows, n = [], 0
+    for l in range(cfg.n_layers):
+        rows.append(n if cfg.ffn_kind(l) == "moe" else None)
+        n += rows[-1] is not None
+    return rows
+
+
 def schedule_rows(schedule, cfg: ModelConfig) -> list:
-    """Per-layer schedules: ``table.row(l)`` for each MoE layer, or None."""
+    """Per-layer schedules: ``table.row(i)`` for the MoE layer of row i
+    (``moe_rows``), None for a layer without MoE."""
     if schedule is None:
         return [None] * cfg.n_layers
     if not isinstance(schedule, ScheduleTable) or schedule.is_row:
         raise TypeError("the stack takes a full ScheduleTable (one row per MoE layer) or None")
     if schedule.num_layers != cfg.n_moe_layers:
         raise ValueError(f"table has {schedule.num_layers} rows for {cfg.n_moe_layers} MoE layers")
-    return [schedule.row(l) for l in range(cfg.n_layers)]
+    return [None if i is None else schedule.row(i) for i in moe_rows(cfg)]
 
 
 def stack_stats(per_layer: list) -> dict | None:

@@ -16,7 +16,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.moe_gemm import moe_gemm as jax_moe_gemm
 
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain, kernel_readable
 from repro_torch.kernels.moe_gemm import ROW_TILE, moe_gemm, moe_gemm_plain, tile_occupancy
 
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -103,3 +103,48 @@ def test_k4_fully_masked_row_is_uniform():
     out = flash_attention_plain(q, k, v, causal=True, window=0)  # window 0 masks every key
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out[0, 0], v[0, 0].mean(0, keepdim=True).expand(4, 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prescale", [None, 16**0.5])
+def test_k4_plain_on_strided_views_matches_jax_kernel(dtype, prescale):
+    """K4 as the model calls it: [B, S, H, D] storage handed over as
+    [B, H, S, D] views (GQA G=4), and with ``prescale`` the model's
+    pre-scaled q, undone in q's dtype before the wrapper's own scaling
+    (JAX's attn_flash: ``q * D**0.5``, then the flash wrapper)."""
+    (q, k, v), _ = _k4_inputs(2, 8, 2, 32, 32, 16, 5, dtype)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not qv.is_contiguous() and torch.equal(qv, q)
+    if prescale is None:
+        out = flash_attention(qv, kv, vv, causal=True)
+        jq = jnp.asarray(q.float().numpy()).astype(JNP[dtype])
+    else:
+        qv = qv * 16**-0.5  # the model's pre-scaled q, as _qkv returns it
+        out = flash_attention(qv, kv, vv, causal=True, prescale=prescale)
+        jq = jnp.asarray(qv.float().numpy()).astype(JNP[dtype]) * prescale
+    jk, jv = (jnp.asarray(t.float().numpy()).astype(JNP[dtype]) for t in (k, v))
+    ref = jax_flash(jq, jk, jv, causal=True, block_q=16, block_k=16, interpret=True)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), **_tol(dtype))
+
+
+def test_k4_kernel_reads_the_models_views_in_place():
+    """The rule for which views the K4 kernel reads in place with 16-byte
+    loads (anything else raises on the card; nothing is copied): unit
+    innermost stride, other strides multiples of 16 bytes, a 16-byte-aligned
+    start."""
+    qkv = torch.zeros((2, 7, 4, 64), dtype=torch.bfloat16)  # [B, S, H, D] storage, as the model projects it
+    assert kernel_readable(qkv.transpose(1, 2))  # the [B, H, S, D] view attn_flash hands over
+    assert kernel_readable(torch.zeros((2, 4, 7, 32), dtype=torch.bfloat16)[..., :16])  # a head-dim slice
+    assert kernel_readable(torch.zeros((1, 1, 1, 16), dtype=torch.bfloat16).expand(2, 3, 5, 16))  # stride 0
+    flat = torch.zeros(2 * 4 * 7 * 64 + 1, dtype=torch.bfloat16)
+    assert not kernel_readable(flat[1:].view(2, 4, 7, 64))  # 2 bytes past an aligned start
+    assert not kernel_readable(qkv.transpose(1, 2).transpose(-1, -2))  # D not innermost
+    assert not kernel_readable(torch.zeros((1, 2, 3, 12), dtype=torch.bfloat16))  # 24-byte rows
+
+
+def test_k4_output_takes_the_layout_of_q():
+    """``torch.empty_like`` of the transposed view keeps its permuted dense
+    layout, so the output's [B, S, H, D] transpose needs no copy."""
+    view = torch.zeros((2, 7, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    out = torch.empty_like(view)
+    assert out.stride() == view.stride() and out.transpose(1, 2).is_contiguous()

@@ -20,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import attention_mask, flash_attention, flash_attention_plain, kernel_readable
+from repro_torch.kernels.flash_attention.ops import _launch as k4_launch
 from repro_torch.kernels.rwkv_wkv import wkv6, wkv6_plain
 from repro_torch.kernels.moe_gemm import (
     moe_gemm,
@@ -88,14 +90,17 @@ def test_k1_kernel_matches_plain_on_card(cuda_device, e, c, d, f, counts):
 
 
 def _k2k3_inputs(e, c, counts, device, d=128, f=256):
-    """Unit-scale activations and 1/sqrt(fan-in) weights: outputs of order 1."""
+    """Unit-scale activations and 1/sqrt(fan-in) weights: outputs of order 1.
+    ``counts[i]``: expert i's live rows, ``n`` for rows [0, n) or a list of
+    ``(lo, hi)`` row ranges."""
     rng = np.random.default_rng(3)
     x, go = _randn(rng, (e, c, d), 1.0, device), _randn(rng, (e, c, d), 1.0, device)
     wg, wu = (_randn(rng, (e, d, f), d**-0.5, device) for _ in range(2))
     wd = _randn(rng, (e, f, d), f**-0.5, device)
     rv = torch.zeros((e, c), dtype=torch.bool, device=device)
     for i, ct in enumerate(counts):
-        rv[i, :ct] = True
+        for lo, hi in ct if isinstance(ct, list) else [(0, ct)]:
+            rv[i, lo:hi] = True
     return go, x, wg, wu, wd, rv
 
 
@@ -109,7 +114,31 @@ def _k2k3_inputs(e, c, counts, device, d=128, f=256):
     ],
 )
 def test_k2_k3_kernels_match_plain_on_card(cuda_device, e, c, counts):
-    go, x, wg, wu, wd, rv = _k2k3_inputs(e, c, counts, cuda_device)
+    _check_k2_k3(*_k2k3_inputs(e, c, counts, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "e,c,d,f,counts",
+    [
+        # live rows only in the second 64-row half of a 128-row block; a dark expert; C = 192, not a
+        # multiple of the recompute's 128-row block
+        (3, 192, 128, 256, [[(64, 128)], 0, 150]),
+        # C = 300 (ragged tail tile); one live row in the second half of the first block; a dark expert
+        (3, 300, 128, 256, [[(128, 300)], [(70, 71)], 0]),
+        # d = 192: the wgrad's second 64-row half of d and the down tile's fourth box lie past d;
+        # F = 320: the last 128-column F tile is half outside; several contraction stages
+        (3, 260, 192, 320, [260, 0, [(100, 200)]]),
+        # dark tiles between live ones: wgrad walks tiles 0, 3 and 5 of expert 0 and 1, 4 of expert 2;
+        # expert 1 has no live tile at all
+        (3, 384, 128, 256, [[(0, 10), (200, 250), (330, 384)], 0, [(64, 65), (300, 301)]]),
+    ],
+)
+def test_k2_k3_kernels_match_plain_on_card_at_block_edges(cuda_device, e, c, d, f, counts):
+    _check_k2_k3(*_k2k3_inputs(e, c, counts, cuda_device, d=d, f=f))
+
+
+def _check_k2_k3(go, x, wg, wu, wd, rv):
     n2, n3 = moe_gemm_dgrad.launches, moe_gemm_wgrad.launches
     dx = moe_gemm_dgrad(go, x, wg, wu, wd, rv)
     grads = moe_gemm_wgrad(go, x, wg, wu, wd, rv)
@@ -167,6 +196,84 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, h, kh, sq, skv, d, window)
     assert flash_attention.launches == before + 1
     ref = flash_attention_plain(q * (d**-0.5), k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize(
+    "h,kh,sq,skv,window,causal",
+    [
+        # an even group: two query heads and two q tiles a block
+        (8, 2, 70, 200, None, True),  # G = 4, Sq < Skv (q_offset 130)
+        (8, 2, 150, 150, 40, True),  # a window: leading KV tiles skipped, straddling ones masked
+        (4, 1, 130, 190, 50, False),  # a window without the causal mask, MQA
+        (4, 1, 70, 600, None, True),  # 10 KV tiles: the pair's tiles stream through the ring with refills
+        (8, 4, 300, 300, 100, True),  # G = 2, window, refills
+        # an odd group: one block per query head and q tile
+        (4, 4, 100, 100, None, True),  # G = 1, ragged q and kv tiles
+        (6, 2, 300, 300, 100, True),  # G = 3, window, refills of the two-stage ring
+        (3, 1, 70, 600, None, True),  # G = 3, 10 KV tiles
+    ],
+)
+def test_k4_kernel_head_sizes_on_card(cuda_device, d, h, kh, sq, skv, window, causal):
+    rng = np.random.default_rng(8)
+    q = _randn(rng, (2, h, sq, d), 1.0, cuda_device)
+    k, v = (_randn(rng, (2, kh, skv, d), 1.0, cuda_device) for _ in range(2))
+    out = k4_launch(q, k, v, causal=causal, window=window)
+    ref = flash_attention_plain(q * (d**-0.5), k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_k4_kernel_at_the_prefill_shape_from_strided_views(cuda_device):
+    """Mixtral's prefill (B=4, 32/8 heads of 128, S=256) as attn_flash calls
+    it: the [B, S, H, D] projections handed over as [B, H, S, D] views are
+    read in place, the pre-scaled q is undone (``prescale``) and scaled
+    again in the kernel with both bf16 roundings, and the output's
+    [B, S, H, D] transpose is dense, as _apply_out wants."""
+    rng = np.random.default_rng(9)
+    q = _randn(rng, (4, 256, 32, 128), 1.0, cuda_device).transpose(1, 2) * 128**-0.5  # _qkv's pre-scale
+    k, v = (_randn(rng, (4, 256, 8, 128), 1.0, cuda_device).transpose(1, 2) for _ in range(2))
+    assert all(kernel_readable(t) and not t.is_contiguous() for t in (k, v))
+    out = k4_launch(q, k, v, causal=True, window=None, prescale=128**0.5)
+    assert out.transpose(1, 2).is_contiguous()
+    ref = flash_attention_plain((q * 128**0.5) * 128**-0.5, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "sq,skv,window,causal",
+    [
+        (100, 100, 0, True),  # window 0: no row sees a key
+        (150, 40, None, True),  # Sq > Skv: rows before position 0 see no key
+        (130, 130, 0, False),  # window 0 without the causal mask: only the last row sees none
+    ],
+)
+def test_k4_kernel_fully_masked_rows_average_every_key(cuda_device, sq, skv, window, causal):
+    """NEG = -1e30, not -inf: a row that sees no key averages all of them,
+    as the reference; the kernel then walks every KV tile."""
+    rng = np.random.default_rng(10)
+    q = _randn(rng, (2, 8, sq, 64), 1.0, cuda_device)
+    k, v = (_randn(rng, (2, 2, skv, 64), 1.0, cuda_device) for _ in range(2))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = flash_attention_plain(q * 64**-0.5, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    blind = ~attention_mask(sq, skv, causal=causal, window=window, device=cuda_device).any(dim=1)
+    assert blind.any()
+    mean_v = v.float().mean(dim=2, keepdim=True).repeat_interleave(4, dim=1)  # [B, H, 1, D]
+    torch.testing.assert_close(out[:, :, blind].float(), mean_v.expand(-1, -1, int(blind.sum()), -1), **TOL)
+
+
+@pytest.mark.cuda
+def test_k4_kernel_raises_for_views_it_cannot_read(cuda_device):
+    """A view the kernel cannot read in place raises; nothing is copied."""
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    d_strided = torch.zeros((1, 2, 64, 8), dtype=torch.bfloat16, device=cuda_device).transpose(-1, -2)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="unit stride in D"):
+        flash_attention(d_strided, q, q)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.cuda
@@ -256,3 +363,23 @@ def test_k5_kernel_raises_for_other_head_sizes(cuda_device):
         wkv6(*(torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=cuda_device) for _ in range(4)),
              torch.zeros((2, 64), device=cuda_device))
     assert wkv6.launches == before
+
+
+@pytest.mark.cuda
+def test_stream_handle_is_the_current_stream(cuda_device):
+    """Every wrapper launches on ``build.stream_handle``, PyTorch's raw stream
+    query: it must name the stream ``torch.cuda.current_stream`` does, on the
+    default stream and under another one, and K4 must run on the latter."""
+    dev = torch.device("cuda", torch.cuda.current_device())  # the wrappers pass a tensor's device: indexed
+    assert build.stream_handle(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (1, 4, 64, 64), 1.0, cuda_device)
+    k, v = (_randn(rng, (1, 2, 64, 64), 1.0, cuda_device) for _ in range(2))
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        assert build.stream_handle(dev) == side.cuda_stream != torch.cuda.default_stream(dev).cuda_stream
+        out = flash_attention(q, k, v, causal=True)
+    side.synchronize()
+    assert build.stream_handle(dev) == torch.cuda.current_stream(dev).cuda_stream
+    torch.testing.assert_close(out.float(), flash_attention_plain(q * 64**-0.5, k, v, causal=True).float(), **TOL)
