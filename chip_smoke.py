@@ -20,7 +20,8 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    transposed [B, S, H, D] views with the pre-scaled q, ``prescale``
    inside) beside SDPA called the same way, with both calls' host time;
 5. K2 (dgrad) and K3 (wgrad) at the training shape, the same way, each
-   of their launches (recompute, dgrad, wgrad) timed alone, and K3b (the
+   of their launches (recompute, dgrad, wgrad) timed alone (the dgrad
+   launch beside ``torch.baddbmm`` on the same da/du and its own bound), and K3b (the
    ungrouped forward): its own path, forward and backward through
    autograd, counted and held against the plain versions;
 6. serve full-width Mixtral-8x7B cut to 4 layers (random weights from a
@@ -49,7 +50,8 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
 9. K5 (the WKV6 recurrence) against its plain version at the RWKV6-7B
    prefill shape (r/k/v [4, 64, 1024, 64] bf16) from S = 0, and at T = 1
    and T = 37 from a carried state, with its time, the plain version's
-   and the bound (no PyTorch call computes it: library none);
+   and the bound (5 D^2 f32 FLOP per step and head; no PyTorch call
+   computes it: library none);
 10. serve full-width RWKV6-7B at all 32 layers (random weights from a
    seed; no MoE, so no table): prefill and greedy decode, 2 rounds;
    launch counts reset just before and read just after (K5 once per layer
@@ -62,8 +64,9 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    kernel group), and the prefill logits of the kernel path held against
    the plain path on the same seeded model in f32.
 
-It prints K4's extra numbers and K2's/K3's per-launch times one a line
-beside the card's name and power limit, a ``kernels`` JSON line, then,
+It prints K4's extra numbers and K2's/K3's per-launch times (with the
+dgrad launch's library time and bound) one a line beside the card's name
+and power limit, a ``kernels`` JSON line, then,
 last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before that line.
 """
@@ -209,7 +212,7 @@ def main() -> None:
     t0 = time.perf_counter()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(build.SOURCES)}")
-    wgmma_kernels = ("k1_", "k23_", "k3_", "k4_")  # the warp-specialised wgmma kernels
+    wgmma_kernels = ("k1_", "k23_", "k2_", "k3_", "k4_")  # the warp-specialised wgmma kernels
     for name in build.SOURCES:
         for k in build.ptxas_kernels(name):
             print(f"  {name}: {k['kernel']}: {k['registers']} registers, {k.get('stack_frame', 0)} B stack, "
@@ -527,7 +530,10 @@ def main() -> None:
             f"kernel {r['ms']:.3f} ms | plain {r['plain_ms']:.3f} ms | torch.bmm chain {r['library_ms']:.3f} ms | "
             f"bound {b_ms:.3f} ms ({b_by}) | {r['tflops']:.1f} TFLOP/s, {100 * b_ms / r['ms']:.1f}% of bound"
         )
-    # each launch alone, so the next redesign sees which one sets the pace
+    # each launch alone, so the next redesign sees which one sets the pace; the
+    # dgrad launch beside one library call on the same da/du (it computes dark
+    # rows too) and its own bound: 4 d F FLOP a row, da/du and the live
+    # experts' wg/wu read once, dx written once
     rvb, (da, du, hh) = k1._launch_silu_grads(go, x, wg, wu, wd, rv)
     launch_ms = {
         "silu_grads": cuda_ms(lambda: k1._launch_silu_grads(go, x, wg, wu, wd, rv), 5),
@@ -535,11 +541,15 @@ def main() -> None:
         "wgrad": cuda_ms(lambda: k1._launch_wgrad(go, x, wg, rvb, da, du, hh), 5),
     }
     launch_flops = {"silu_grads": 6.0 * d * f * rows, "dgrad": 4.0 * d * f * rows, "wgrad": 6.0 * d * f * rows}
+    dgrad_lib_ms = cuda_ms(lambda: torch.baddbmm(torch.bmm(da, wg.transpose(1, 2)), du, wu.transpose(1, 2)), 5)
+    dgrad_b_ms, dgrad_b_by = bound(4.0 * d * f * rows, 2 * rows * f * 2 + live_experts * 2 * d * f * 2 + e * c + e * c * d * 2)
     for name in k23_rows:
         k23_rows[name]["launch_ms"] = {key: launch_ms[key] for key in ("silu_grads", name)}
+    k23_rows["dgrad"].update(launch_library_ms=dgrad_lib_ms, launch_bound_ms=dgrad_b_ms, launch_bound_by=dgrad_b_by)
     print("K2/K3 launches alone: " + " | ".join(
         f"{key} {ms:.3f} ms ({launch_flops[key] / ms / 1e9:.1f} TFLOP/s)" for key, ms in launch_ms.items()
-    ) + " (dgrad: still WMMA)")
+    ) + f" | dgrad's torch.baddbmm(torch.bmm(da, wg^T), du, wu^T) {dgrad_lib_ms:.3f} ms, dgrad bound "
+        f"{dgrad_b_ms:.3f} ms ({dgrad_b_by}), {100 * dgrad_b_ms / launch_ms['dgrad']:.1f}% of bound")
     del da, du, hh, rvb
 
     # K3b: its own path, moe_gemm with no occupancy table (every row live),
@@ -893,7 +903,9 @@ def main() -> None:
         n = b5 * h5 * t * hd5
         state = b5 * h5 * hd5 * hd5 * 4
         nbytes = 3 * n * 2 + n * 4 + h5 * hd5 * 4 + n * 4 + state * (2 if carried else 1)
-        return bound(4.0 * hd5 * hd5 * b5 * h5 * t, nbytes, PEAK_F32_FLOPS)
+        # 5 D^2 FLOP per (b, h, t) is the least this recurrence takes in f32: w * s + k * v (a MUL and an
+        # FMA) for the state and r * s (an FMA) for y, once the u term is one scalar per step (c_t v_j)
+        return bound(5.0 * hd5 * hd5 * b5 * h5 * t, nbytes, PEAK_F32_FLOPS)
 
     u5 = torch.randn((h5, hd5), generator=wgen, device=dev) * 0.1
     k5_err, k5_rows = 0.0, {}
@@ -1092,6 +1104,8 @@ def main() -> None:
                 launches_by_path=path_launches[f"moe_gemm_grouped_{name}"],
                 **{key: k23_rows[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
                                                         "tflops", "launch_ms")},
+                **{key: k23_rows[name][key] for key in ("launch_library_ms", "launch_bound_ms", "launch_bound_by")
+                   if key in k23_rows[name]},
             )
             for name, line in (("dgrad", 272), ("wgrad", 327))
         ),
@@ -1115,6 +1129,8 @@ def main() -> None:
     for name, row in k23_rows.items():
         for launch, ms in row["launch_ms"].items():
             print(f"K{2 if name == 'dgrad' else 3} launch_ms {launch}: {ms} ({card})")
+    for key in ("launch_library_ms", "launch_bound_ms"):
+        print(f"K2 dgrad {key}: {k23_rows['dgrad'][key]} ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -33,11 +33,12 @@
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): at the training
 // shape (C = 640 per expert, 2816 occupied rows, d = 4096, F = 14336)
 // the recompute is 6 d F FLOP per row (1.0e12, 1.0 ms), dgrad 4 d F
-// (0.67 ms) and wgrad 6 d F (1.0 ms) while writing all 3 d F weight
-// gradients per expert (2.8 GB, 0.84 ms): the tensor cores bound each
-// launch, and wgrad's writes come close.
+// (0.67 ms, against 0.49 ms for reading the live experts' wg and wu once)
+// and wgrad 6 d F (1.0 ms) while writing all 3 d F weight gradients per
+// expert (2.8 GB, 0.84 ms): the tensor cores bound each launch, and
+// dgrad's weight reads and wgrad's writes come close.
 //
-// Design.  Launches 1 and 3 are warp-specialised wgmma + TMA kernels on
+// Design.  All three launches are warp-specialised wgmma + TMA kernels on
 // K1's mainloop (Hopper only, sm_90a; the PTX building blocks, the
 // wgmma.mma_async wrappers among them, are in hopper.cuh, shared with K1
 // and K4): warpgroup 0 is the producer (one thread issues TMA loads into a
@@ -71,18 +72,25 @@
 //   into the next output tile while the consumers write theirs as bf16
 //   into shared memory (128-byte swizzle) and hand it to TMA stores, so
 //   the 2.8 GB of writes overlap the next tile's products.
-// Launch 2 (dgrad, K2's own launch) is the only WMMA launch left here: still
-// the first port's design, bf16 WMMA 16x16x16 with f32 accumulators, a
-// three-stage cp.async ring, 64x64 output tiles per 128-thread block.
-
-#include <mma.h>
+// - dgrad: K1's down launch with another operand walk.  A block covers 128
+//   rows of one expert (two 64-row occupancy halves, one consumer each)
+//   and DG_BN = 256 columns of d (a 128-column tile was measured slower,
+//   PERF.md), and contracts over 2F in one ring of 4 48 KB stages: F/64
+//   stages of (da, wg), then F/64 of (du, wu).  wg/wu [d, F] row-major are
+//   the K-major B of da @ wg^T, read through [DG_BN, 64] boxes with no
+//   transpose flag.  The producer loads only the live
+//   halves' rows of da/du, so the scratch the recompute leaves unwritten on
+//   dark tiles (any bits, NaN among them) never reaches shared memory; a
+//   dark half's consumer writes exact zeros, and a block with both halves
+//   dark writes zeros and loads nothing.  The output is bf16, written once
+//   from the register fragments, clipped at C and d.
 
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int BM = OCC_ROWS;     // the occupancy tile
-constexpr int BLOCK_M = 2 * BM;  // rows (silu_grads) or output rows (wgrad) per wgmma block
+constexpr int BLOCK_M = 2 * BM;  // rows of one expert (silu_grads, dgrad) or output rows (wgrad) per block
 constexpr int BK = 64;           // contraction per stage: one 128-byte swizzle row
 constexpr int THREADS = 384;     // producer warpgroup + two consumer warpgroups
 constexpr int MAX_TILES = 256;   // row tiles per expert (the wrapper's MAX_ROW_TILES)
@@ -384,130 +392,83 @@ __global__ void __launch_bounds__(THREADS, 1) k3_wgrad_down_kernel(
   wgrad_tiles<WD_BN, false>(&map_h, &map_go, &map_go, &map_dwd, &map_dwd, row_valid, dwd, dwd, E, C, F, D);
 }
 
-// ------------------------------------------------- launch 2: dgrad (WMMA)
-namespace dg {
+// ----------------------------------------------------------- launch 2: dgrad
+constexpr int DG_BN = 256;  // d columns of dx per block
+constexpr int DG_W_BYTES = DG_BN * SWIZZLE_BYTES;  // a K-major [DG_BN rows of d, 64 of F] tile of wg or wu: 32 KB
+constexpr int DG_STAGE_BYTES = A_BYTES + DG_W_BYTES;  // 48 KB
+constexpr int DG_STAGES = 4;  // a 192 KB ring
+constexpr int DG_SMEM = 1024 + DG_STAGES * DG_STAGE_BYTES + 2 * DG_STAGES * 8;
 
-using namespace nvcuda;
-
-constexpr int BN = 64;        // output columns per tile
-constexpr int BK = 32;        // contraction step per pipeline stage
-constexpr int STAGES = 3;
-constexpr int THREADS = 128;  // 4 warps in a 2x2 grid, 32x32 outputs each
-constexpr int LDA = BK + 8;   // pitch of an [BM, BK] A tile and an [BN, BK] B^T tile
-constexpr int LDC = BN + 4;   // pitch of the f32 epilogue tile
-constexpr int A_ELEMS = BM * LDA;
-constexpr int BT_ELEMS = BN * LDA;
-constexpr int EPI_BYTES = BM * LDC * 4;
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-// stage: da or du (A), wg^T or wu^T (B^T)
-constexpr int STAGE_BYTES = (A_ELEMS + BT_ELEMS) * 2;
-constexpr int SMEM = cmax(STAGES * STAGE_BYTES, EPI_BYTES);
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// True (in every thread) iff a row of [c0, c0 + BM) below C is live.
-__device__ __forceinline__ bool tile_live(const uint8_t* row_valid, int e, int c0, int C) {
-  return rows_live(row_valid, e, c0, C, 0);
-}
-
-// [BM, BK] tile of a row-major [C, K] matrix at (c0, k0); rows >= C are zero.
-__device__ __forceinline__ void load_a(bf16* s, const bf16* A, int C, int K, int c0, int k0) {
-  for (int i = threadIdx.x; i < BM * BK / 8; i += THREADS) {
-    const int r = i / (BK / 8), cc = (i % (BK / 8)) * 8;
-    const bool ok = c0 + r < C;
-    cp_async16(s + r * LDA + cc, A + (size_t)(ok ? c0 + r : 0) * K + k0 + cc, ok);
-  }
-}
-
-// [BN, BK] tile (rows n0.., columns k0..) of a row-major [*, K] matrix:
-// read as a column-major [BK, BN] B operand, i.e. the matrix transposed.
-__device__ __forceinline__ void load_bt(bf16* s, const bf16* W, int K, int n0, int k0) {
-  for (int i = threadIdx.x; i < BN * BK / 8; i += THREADS) {
-    const int r = i / (BK / 8), cc = (i % (BK / 8)) * 8;
-    cp_async16(s + r * LDA + cc, W + (size_t)(n0 + r) * K + k0 + cc, true);
-  }
-}
-
-// Stage a warp's 2x2 accumulator fragments in the f32 tile and write them
-// out as bf16, rows below R of a row-major [R, N] matrix.
-__device__ __forceinline__ void flush(FragC (&acc)[2][2], float* sC, bf16* dst, int R, int N, int r0, int n0,
-                                      int wm, int wn) {
-  __syncthreads();  // sC may alias the last stage
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sC + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * BN / 2; i += THREADS) {
-    const int r = i / (BN / 2), cc = (i % (BN / 2)) * 2;
-    if (r0 + r < R) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(r0 + r) * N + n0 + cc) =
-          __floats2bfloat162_rn(sC[r * LDC + cc], sC[r * LDC + cc + 1]);
-    }
-  }
-}
-
-// dx = da @ wg^T + du @ wu^T on live tiles, exact zeros on dark ones.
-__global__ void __launch_bounds__(THREADS) k2_dgrad_kernel(
-    const bf16* __restrict__ da, const bf16* __restrict__ du, const bf16* __restrict__ wg,
-    const bf16* __restrict__ wu, const uint8_t* __restrict__ row_valid, bf16* __restrict__ dx, int C, int D,
-    int F) {
-  const int n0 = blockIdx.x * BN, c0 = blockIdx.y * BM, e = blockIdx.z;
+// dx[e] = da[e] @ wg[e]^T + du[e] @ wu[e]^T on the live 64-row halves of
+// rows [c0, c0 + 128), columns [n0, n0 + DG_BN) of d, exact zeros on the
+// dark halves: one contraction over 2F, (da, wg) stages first.
+__global__ void __launch_bounds__(THREADS, 1) k2_dgrad_kernel(
+    const __grid_constant__ CUtensorMap map_da, const __grid_constant__ CUtensorMap map_du,
+    const __grid_constant__ CUtensorMap map_wg, const __grid_constant__ CUtensorMap map_wu,
+    const uint8_t* __restrict__ row_valid, bf16* __restrict__ dx, int C, int D, int F) {
+  const int c0 = blockIdx.x * BLOCK_M, n0 = blockIdx.y * DG_BN, e = blockIdx.z;
   bf16* dxe = dx + (size_t)e * C * D;
-  if (!tile_live(row_valid, e, c0, C)) {
-    store_zeros<BN>(dxe, c0, BM, C, D, n0, threadIdx.x, THREADS);
+  const bool live[2] = {rows_live(row_valid, e, c0, C, 0), rows_live(row_valid, e, c0 + BM, C, 1)};
+  if (!live[0] && !live[1]) {
+    store_zeros<DG_BN>(dxe, c0, BLOCK_M, C, D, n0, threadIdx.x, THREADS);
     return;
   }
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  const size_t ho = (size_t)e * C * F, wo = (size_t)e * D * F;
-  auto sA = [&](int s) { return reinterpret_cast<bf16*>(smem + s * STAGE_BYTES); };
-  auto sBT = [&](int s) { return sA(s) + A_ELEMS; };
-  const int KF = F / BK;
-  auto load_stage = [&](int s, int kt) {  // the first F steps pair da with wg, the rest du with wu
-    const bool first = kt < KF;
-    const int k0 = (first ? kt : kt - KF) * BK;
-    load_a(sA(s), (first ? da : du) + ho, C, F, c0, k0);
-    load_bt(sBT(s), (first ? wg : wu) + wo, F, n0, k0);  // (wg^T)[f, n] = wg[n, f]
-  };
-  const int KT = 2 * KF;
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  const int warp = threadIdx.x / 32, wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  FragC acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-    const int s = kt % STAGES;
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa[2];
-      FragBT fb[2];
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], sA(s) + (wm + 16 * i) * LDA + kk, LDA);
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], sBT(s) + (wn + 16 * j) * LDA + kk, LDA);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  unsigned char* ring = ring_base();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + DG_STAGES * DG_STAGE_BYTES);
+  uint64_t* empty = full + DG_STAGES;
+  init_ring(full, empty, DG_STAGES, 4 * (live[0] + live[1]));
+  const int KF = F / BK, KT = 2 * KF;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      prefetch_map(&map_da);
+      prefetch_map(&map_du);
+      prefetch_map(&map_wg);
+      prefetch_map(&map_wu);
+      const uint32_t bytes = (live[0] + live[1]) * (A_BYTES / 2) + DG_W_BYTES;
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % DG_STAGES, k0 = (kt < KF ? kt : kt - KF) * BK;
+        const CUtensorMap* map_a = kt < KF ? &map_da : &map_du;
+        if (kt >= DG_STAGES) mbar_wait(&empty[s], (kt / DG_STAGES - 1) & 1);
+        unsigned char* st = ring + s * DG_STAGE_BYTES;
+        mbar_expect_tx(&full[s], bytes);
+        for (int half = 0; half < 2; ++half)  // a dark half's rows are never loaded
+          if (live[half]) tma_load(st + half * (A_BYTES / 2), map_a, &full[s], k0, c0 + half * BM, e);
+        tma_load(st + A_BYTES, kt < KF ? &map_wg : &map_wu, &full[s], k0, n0, e);  // rows past d zero-fill
+      }
     }
+  } else {  // consumer of 64-row half wg - 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int half = wg - 1, tid = threadIdx.x % 128;
+    const int r0 = c0 + half * BM;
+    if (!live[half]) {
+      store_zeros<DG_BN>(dxe, r0, BM, C, D, n0, tid, 128);
+      return;
+    }
+    float acc[DG_BN / 2];
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % DG_STAGES;
+      mbar_wait(&full[s], (kt / DG_STAGES) & 1);
+      const unsigned char* st = ring + s * DG_STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)  // A and B both K-major: 32 bytes per k16 step, no transpose
+        wgmma_ss<DG_BN, 0, 0>(acc, smem_desc(st + half * (A_BYTES / 2) + kk * 32, 0),
+                              smem_desc(st + A_BYTES + kk * 32, 0), kt | kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (kt > 0 && tid % 32 == 0) mbar_arrive(&empty[(kt - 1) % DG_STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    for_fragment<DG_BN>(tid, [&](int i, int r, int c) {
+      if (r0 + r < C && n0 + c < D)
+        *reinterpret_cast<__nv_bfloat162*>(dxe + (size_t)(r0 + r) * D + n0 + c) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    });
   }
-  cp_async_wait<0>();
-  flush(acc, reinterpret_cast<float*>(smem), dxe, C, D, c0, n0, wm, wn);
 }
-
-}  // namespace dg
 
 bool bad_shape(int E, int C, int D, int F) {
   const int tiles = (C + BM - 1) / BM;
@@ -546,9 +507,18 @@ extern "C" int moe_gemm_silu_grads(const void* go, const void* x, const void* wg
 extern "C" int moe_gemm_dgrad_from(const void* da, const void* du, const void* wg, const void* wu,
                                    const void* row_valid, void* dx, int E, int C, int D, int F, void* stream) {
   if (bad_shape(E, C, D, F)) return (int)cudaErrorInvalidValue;
-  dg::k2_dgrad_kernel<<<dim3(D / dg::BN, (C + BM - 1) / BM, E), dg::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(da), static_cast<const bf16*>(du), static_cast<const bf16*>(wg),
-      static_cast<const bf16*>(wu), static_cast<const uint8_t*>(row_valid), static_cast<bf16*>(dx), C, D, F);
+  if (!encode_tiled()) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap map_da, map_du, map_wg, map_wu;
+  if (!make_map(&map_da, da, E, C, F, BM) || !make_map(&map_du, du, E, C, F, BM) ||
+      !make_map(&map_wg, wg, E, D, F, DG_BN) || !make_map(&map_wu, wu, E, D, F, DG_BN))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;
+  const cudaError_t err = allow_smem(k2_dgrad_kernel, DG_SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  k2_dgrad_kernel<<<dim3((C + BLOCK_M - 1) / BLOCK_M, (D + DG_BN - 1) / DG_BN, E), THREADS, DG_SMEM,
+                    static_cast<cudaStream_t>(stream)>>>(map_da, map_du, map_wg, map_wu,
+                                                         static_cast<const uint8_t*>(row_valid),
+                                                         static_cast<bf16*>(dx), C, D, F);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,9 @@ carries the state).  r/k/v are widened to f32 before any product; w and
 u are f32.  On a CUDA tensor it launches ``csrc/rwkv_wkv.cu`` (D = 64,
 r/k/v bf16 or f32) or raises; on a CPU tensor it runs ``wkv6_plain``.
 The kernel reads the inputs through their strides when all four share
-them with a contiguous last dim, so the model's [B, T, H, D] activations
-transposed to [B, H, T, D] are not copied; its y is a [B, H, T, D] view
+them with a contiguous last dim and 16-byte-aligned rows, so the model's
+[B, T, H, D] activations transposed to [B, H, T, D] are not copied (other
+views are made contiguous first); its y is a [B, H, T, D] view
 of [B, T, H, D] storage, the layout the model reads back.  Counterpart
 of ``repro.kernels.rwkv_wkv.wkv6`` (which always starts from S = 0) and
 of its oracle ``wkv6_ref`` (which takes ``s0``).
@@ -56,6 +57,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _rows_aligned(strides, *xs) -> bool:
+    """Every (b, h, t) row starts on 16 bytes, as the kernel's cp.async
+    copies need: 16-byte-aligned bases and strides a multiple of 8."""
+    return all(s % 8 == 0 for s in strides[:3]) and all(x.data_ptr() % 16 == 0 for x in xs)
+
+
 def _launch(r, k, v, w, u, s0):
     b, h, t, d = r.shape
     dev = r.device
@@ -72,11 +79,13 @@ def _launch(r, k, v, w, u, s0):
             raise ValueError(f"wkv6 kernel: {name} must be {dtype} {shape} on {dev}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     strides = r.stride()
-    if strides[3] != 1 or any(x.stride() != strides for x in (k, v, w)):
-        r, k, v, w = (x.contiguous() for x in (r, k, v, w))
+    if strides[3] != 1 or any(x.stride() != strides for x in (k, v, w)) or not _rows_aligned(strides, r, k, v, w):
+        r, k, v, w = (x.clone(memory_format=torch.contiguous_format) for x in (r, k, v, w))  # fresh, aligned
         strides = r.stride()
-    u = u.contiguous()
-    s0 = None if s0 is None else s0.contiguous()
+    if not u.is_contiguous() or u.data_ptr() % 16:
+        u = u.clone(memory_format=torch.contiguous_format)  # decode reads 16-byte row pieces of u
+    if s0 is not None and (not s0.is_contiguous() or s0.data_ptr() % 16):
+        s0 = s0.clone(memory_format=torch.contiguous_format)  # read a 16-byte row piece at a time
     y = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
     s_final = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
     err = _lib().wkv6_fwd(

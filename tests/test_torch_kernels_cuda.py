@@ -24,6 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import attention_mask, flash_attention, flash_attention_plain, kernel_readable
 from repro_torch.kernels.flash_attention.ops import _launch as k4_launch
 from repro_torch.kernels.rwkv_wkv import wkv6, wkv6_plain
+from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops
 from repro_torch.kernels.moe_gemm import (
     moe_gemm,
     moe_gemm_bwd,
@@ -156,6 +157,43 @@ def _check_k2_k3(go, x, wg, wu, wd, rv):
     fused = moe_gemm_bwd(go, x, wg, wu, wd, rv)  # the autograd backward's shared-recompute form
     for a, b in zip(fused, (dx, *grads)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "e,c,counts",
+    [
+        # C = 130: block 0 of expert 0 has a dark first half beside a live second half, block 1 two
+        # live rows of a ragged tail; expert 1 all dark
+        (3, 130, [[(64, 130)], 0, 130]),
+        # C = 300: a live first half beside a dark second half, then dark blocks; an all-dark expert
+        (3, 300, [300, [(0, 10)], 0]),
+    ],
+)
+def test_k2_dgrad_tile_edges_on_card(cuda_device, e, c, counts):
+    """The dgrad's 128-row x 256-column tile: d = 192 puts a quarter of it past d (TMA zero-fill,
+    clipped stores); F = 320 is five contraction stages of each of (da, wg) and (du, wu)."""
+    _check_k2_k3(*_k2k3_inputs(e, c, counts, cuda_device, d=192, f=320))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,counts", [(130, [[(64, 130)], 0, 100]), (300, [[(0, 10), (200, 210)], 0, 300])])
+def test_k2_dgrad_never_reads_dark_scratch_on_card(cuda_device, c, counts):
+    """The recompute leaves da/du unwritten on dark tiles, so that scratch may hold any bits: filled
+    with NaN there, dgrad still equals its plain version, finite, with exact zeros on dark tiles."""
+    go, x, wg, wu, wd, rv = _k2k3_inputs(3, c, counts, cuda_device, d=192, f=320)
+    rvb, (da, du, _) = moe_gemm_ops._launch_silu_grads(go, x, wg, wu, wd, rv)
+    dark = ~tile_occupancy(rv)
+    assert dark.any()
+    for t in (da, du):
+        t[dark] = float("nan")
+    dx = moe_gemm_ops._launch_dgrad(x, wg, wu, rvb, da, du)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dx).all()
+    assert dx[dark].abs().max().item() == 0.0
+    want = moe_gemm_ops._dgrad_from(da, du, wg, wu, rv, torch.bfloat16)  # bmm keeps a NaN row in its row
+    torch.testing.assert_close(dx.float(), want.float(), **TOL)
+    torch.testing.assert_close(dx.float(), moe_gemm_dgrad_plain(go, x, wg, wu, wd, rv).float(), **TOL)
 
 
 @pytest.mark.cuda
@@ -317,7 +355,7 @@ def _wkv_inputs(rng, b, h, t, device, layout="bhtd", dtype=torch.bfloat16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 37, 1024])
+@pytest.mark.parametrize("t", [1, 5, 37, 1024])
 @pytest.mark.parametrize("carried", [False, True])
 @pytest.mark.parametrize("layout,dtype", [("bhtd", torch.bfloat16), ("btdh", torch.bfloat16), ("btdh", torch.float32)])
 def test_k5_kernel_matches_plain_on_card(cuda_device, t, carried, layout, dtype):
@@ -348,6 +386,46 @@ def test_k5_kernel_chains_through_the_state(cuda_device):
         ys.append(yi)
     torch.testing.assert_close(torch.cat(ys, dim=2), y, **WKV_TOL)
     torch.testing.assert_close(state, s, **WKV_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["near 0", "near 1"])
+@pytest.mark.parametrize("carried", [False, True])
+def test_k5_kernel_at_a_pass_boundary_with_extreme_decays(cuda_device, decay, carried):
+    """T = 33 is one staged pass of 32 steps plus one, B·H = 5 blocks; decays near 0 forget the state
+    at every step, near 1 let it grow over all 33.  One call equals a chain of T = 1 calls."""
+    rng = np.random.default_rng(12)
+    b, h, t = 1, 5, 33
+    r, k, v, _, u = _wkv_inputs(rng, b, h, t, cuda_device)
+    eps = rng.uniform(0.0, 1e-3, (b, h, t, 64))
+    w = torch.from_numpy((eps if decay == "near 0" else 1.0 - eps).astype(np.float32)).to(cuda_device)
+    s0 = None
+    if carried:
+        s0 = torch.from_numpy((rng.standard_normal((b, h, 64, 64)) * 0.3).astype(np.float32)).to(cuda_device)
+    y, s = wkv6(r, k, v, w, u, s0)
+    y_ref, s_ref = wkv6_plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_ref, **WKV_TOL)
+    torch.testing.assert_close(s, s_ref, **WKV_TOL)
+    state, ys = s0, []
+    for i in range(t):
+        yi, state = wkv6(r[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1], w[:, :, i:i + 1], u, state)
+        ys.append(yi)
+    torch.testing.assert_close(torch.cat(ys, dim=2), y, **WKV_TOL)
+    torch.testing.assert_close(state, s, **WKV_TOL)
+
+
+@pytest.mark.cuda
+def test_k5_kernel_copies_views_whose_rows_are_not_16_byte_aligned(cuda_device):
+    """Rows of 64 of a [.., 68] storage start 136 bytes apart in bf16: the kernel's 16-byte copies
+    cannot read them in place, so the wrapper hands it contiguous copies."""
+    rng = np.random.default_rng(13)
+    r, k, v, w, u = _wkv_inputs(rng, 2, 3, 40, cuda_device)
+    pad = [torch.nn.functional.pad(x, (0, 4))[..., :64] for x in (r, k, v, w)]
+    assert pad[0].stride()[2] == 68 and not pad[0].is_contiguous()
+    y, s = wkv6(*pad, u)
+    y_ref, s_ref = wkv6_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, y_ref, **WKV_TOL)
+    torch.testing.assert_close(s, s_ref, **WKV_TOL)
 
 
 @pytest.mark.cuda
