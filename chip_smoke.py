@@ -25,9 +25,10 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    ungrouped forward): its own path, forward and backward through
    autograd, counted and held against the plain versions;
 6. serve full-width Mixtral-8x7B cut to 4 layers (random weights from a
-   seed) through the scheduled MoE path: plan a table, prefill, greedy
-   decode, 2 rounds; the kernels' launch counts are reset just before and
-   read just after; then, on three prompt sets, K1 and K4 are held
+   seed) through the scheduled MoE path: the controller plans a table
+   (drift "none": a cold plan in round 0, kept in round 1), prefill,
+   greedy decode, 2 rounds; the kernels' launch counts are reset just
+   before and read just after; then, on three prompt sets, K1 and K4 are held
    against their plain versions on every layer's own inputs inside a bf16
    prefill and the prefill logits of the kernel path against the plain
    path within the larger of ``LOGITS_REL_TOL`` and twice the bf16 noise
@@ -35,7 +36,17 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    floor alone exceeds ``LOGITS_REL_TOL`` is marked uninformative); then
    the same prefill of the seeded model in f32 on the three prompt sets,
    K1 and K4 on bf16-rounded inputs in both paths and the plain path's
-   routing replayed in the kernel path, within ``LOGITS_REL_TOL``;
+   routing replayed in the kernel path, within ``LOGITS_REL_TOL``
+   (this check comes after 6b);
+6b. serve the same model under drift (``shift``, ``hotspot``, ``skew``;
+   4 rounds of 8 new tokens each), the controller re-planning between
+   rounds: after each round the device table must equal a host runtime's
+   fed the same estimates, a swap inside the envelope must keep the
+   table's tensors (``data_ptr``), ``shift`` and ``hotspot`` must
+   re-plan after round 0, K1 must launch rounds x (1 + new tokens) x
+   layers times and K4 rounds x layers times (every other kernel 0);
+   then, under ``shift``'s last table, the bf16 check of 6 (K1 and K4
+   held per layer, logits kernel vs plain path);
 7. one training step of full-width Mixtral at 1 layer, kernel path
    against plain path: loss and every gradient;
 8. train full-width Mixtral-8x7B cut to 2 layers (f32 masters, bf16
@@ -121,6 +132,8 @@ GRAD_REL_TOL = 2e-2  # per-leaf relative L2 of the 1-layer train-step gradients,
 
 # serving shape: the first slice's path
 BATCH, PROMPT, NEW_TOKENS, ROUNDS, LAYERS, VIRTUAL_RANKS = 4, 256, 32, 2, 4, 8
+# serving under drift: the controller's path, the same model, 4 rounds of 8 new tokens per scenario
+DRIFT_KINDS, DRIFT_ROUNDS, DRIFT_NEW_TOKENS = ("shift", "hotspot", "skew"), 4, 8
 # training shape: the second slice's path (C = round8(ceil(2048 * 2 / 8 * 1.25)) = 640 slots per expert)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_C = 8, 256, 2, 8, 640
 PEAK_LR, WARMUP = 3e-4, 2
@@ -140,6 +153,13 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[f
     rate and operations over the peak for their type (default bf16)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tables_equal(a, b) -> bool:
+    """Two ScheduleTables hold the same leaves (compared on the host) and envelope."""
+    return a.envelope == b.envelope and all(
+        getattr(a, name).cpu().equal(getattr(b, name).cpu()) for name in ("perms", "caps", "valid", "offsets", "n_phases")
+    )
 
 
 def kernel_ident(name: str) -> str:
@@ -191,7 +211,9 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as k4
     from repro_torch.kernels.moe_gemm import ops as k1
     from repro_torch.kernels.rwkv_wkv import ops as k5
-    from repro_torch.launch.serve import serve
+    from repro_torch.core import ScheduleRuntime, make_serving_controller
+    from repro_torch.core.schedule import TABLE_LEAVES
+    from repro_torch.launch.serve import controller_line, demand_estimate, serve
     from repro_torch.launch.train import plan_table, train
     from repro_torch.models import Model
     from repro_torch.models import moe as moe_layer
@@ -630,6 +652,15 @@ def main() -> None:
         fail("prefill logits misshapen or non-finite")
     if not 0 < res.admitted <= res.routed or res.dropped < 0:
         fail(f"MoE stats inconsistent: routed {res.routed}, admitted {res.admitted}, dropped {res.dropped}")
+    # drift "none": round 0 plans cold from the estimate, round 1 keeps that table
+    print(f"serve {controller_line(res.controller[-1])} ({card}) | decisions "
+          f"{[(d.changed, d.replanned, d.actions) for d in res.decisions]}")
+    host_rt, host_scen = make_serving_controller(mcfg, n_ranks=VIRTUAL_RANKS, drift="none", rounds=ROUNDS, device="cpu")
+    host_rt.observe(demand_estimate(mcfg, float(BATCH * PROMPT * cfg.moe.top_k), host_scen, 0))
+    if [d.actions for d in res.decisions] != [("miss",), ("keep",)] or not all(
+        tables_equal(t, host_rt.table()) for t in res.tables
+    ):
+        fail(f"serving tables: decisions {res.decisions}, expected a cold plan in round 0 kept in round 1")
 
     # kernel path vs plain path on the card: the same prompts through prefill,
     # with K1 and K4 held against their plain versions on every layer's own
@@ -640,10 +671,10 @@ def main() -> None:
         prompt_sets.append(torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=pgen, device=dev))
     prompts = prompt_sets[0]  # the prefill trace below reuses them
 
-    def prefill_logits(p, m=None):
+    def prefill_logits(p, m=None, table=None):
         m = model if m is None else m
         caches = m.init_cache(BATCH, PROMPT)
-        return m.prefill(p, caches, schedule=res.table)[0].float()
+        return m.prefill(p, caches, schedule=res.table if table is None else table)[0].float()
 
     def row_rel(a, b) -> float:
         return ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
@@ -677,12 +708,14 @@ def main() -> None:
         out = (down * (1 + 1e-7 * torch.randn(down.shape, generator=ngen, device=dev))).to(x.dtype)
         return torch.where(k1.tile_occupancy(row_valid)[..., None], out, torch.zeros((), dtype=out.dtype, device=dev))
 
-    for i, p in enumerate(prompt_sets):
-        label = "prompt set 0 (serving generator)" if i == 0 else f"prompt seed {MIXTRAL_EXTRA_PROMPT_SEEDS[i - 1]}"
+    def bf16_prefill_check(p, label: str, table) -> None:
+        """K1 and K4 held on every layer's own inputs inside a bf16 prefill
+        under ``table``, and the logits of the kernel path against the plain
+        path within the larger of LOGITS_REL_TOL and twice the noise floor."""
         k1_layer_errs.clear()
         k4_layer_errs.clear()
         with mock.patch.object(k1, "moe_gemm", held_k1), mock.patch.object(k4, "flash_attention", held_k4):
-            kernel_logits = prefill_logits(p)
+            kernel_logits = prefill_logits(p, table=table)
         if len(k1_layer_errs) != LAYERS or len(k4_layer_errs) != LAYERS or not torch.isfinite(kernel_logits).all():
             fail(f"Mixtral bf16 prefill ({label}): K1 held in {len(k1_layer_errs)} and K4 in {len(k4_layer_errs)} "
                  f"of {LAYERS} layers, or non-finite logits")
@@ -691,9 +724,9 @@ def main() -> None:
               f"(tol {BF16_TOL} + {BF16_TOL}*|plain|)")
         with mock.patch.object(k4, "flash_attention", plain_flash):
             with mock.patch.object(k1, "moe_gemm", k1.moe_gemm_plain):
-                plain_logits = prefill_logits(p)
+                plain_logits = prefill_logits(p, table=table)
             with mock.patch.object(k1, "moe_gemm", perturbed_k1):
-                noise_logits = prefill_logits(p)
+                noise_logits = prefill_logits(p, table=table)
         rel, floor = row_rel(kernel_logits, plain_logits), row_rel(noise_logits, plain_logits)
         logits_tol = max(LOGITS_REL_TOL, MIXTRAL_BF16_NOISE_MULT * floor)
         max_abs = (kernel_logits - plain_logits).abs().max().item()
@@ -713,7 +746,68 @@ def main() -> None:
             fail(f"prefill logits of the kernel path differ from the plain path ({label}): rel L2 {rel:.3g}, "
                  f"tol {logits_tol:.3g}")
 
-    del model, kernel_logits, plain_logits, noise_logits
+    for i, p in enumerate(prompt_sets):
+        label = "prompt set 0 (serving generator)" if i == 0 else f"prompt seed {MIXTRAL_EXTRA_PROMPT_SEEDS[i - 1]}"
+        bf16_prefill_check(p, label, res.table)
+
+    # 6b. serve under drift: the same model, the controller re-planning between
+    # rounds; each round's device table is held against a host runtime fed the
+    # same estimates, and a swap inside the envelope must reuse the tensors
+    real_table, table_ptrs = ScheduleRuntime.table, []
+
+    def recording_table(runtime):
+        table = real_table(runtime)
+        if runtime.device.type == "cuda":
+            table_ptrs.append((runtime.table_rebuilds, [getattr(table, name).data_ptr() for name in TABLE_LEAVES]))
+        return table
+
+    drift_launches = dict.fromkeys(COUNTED, 0)
+    drift_table = None
+    for kind in DRIFT_KINDS:
+        table_ptrs.clear()
+        reset_counts()
+        with mock.patch.object(ScheduleRuntime, "table", recording_table):
+            dres = serve(model, batch=BATCH, prompt_len=PROMPT, new_tokens=DRIFT_NEW_TOKENS, rounds=DRIFT_ROUNDS,
+                         controller=True, virtual_ranks=VIRTUAL_RANKS, drift=kind, seed=0)
+        got = read_counts()
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(moe_gemm_grouped=DRIFT_ROUNDS * (1 + DRIFT_NEW_TOKENS) * LAYERS,
+                      flash_attention_fwd=DRIFT_ROUNDS * LAYERS)
+        if len(table_ptrs) != DRIFT_ROUNDS:
+            fail(f"drift {kind}: {len(table_ptrs)} table fetches for {DRIFT_ROUNDS} rounds")
+        host_rt, host_scen = make_serving_controller(mcfg, n_ranks=VIRTUAL_RANKS, drift=kind, rounds=DRIFT_ROUNDS,
+                                                     device="cpu")
+        for r in range(DRIFT_ROUNDS):
+            d, m, t = dres.decisions[r], dres.controller[r], dres.tables[r]
+            admitted, dropped, routed = dres.moe_by_round[r]
+            print(f"drift {kind} round {r}: changed {d.changed} replanned {d.replanned} actions {d.actions} | "
+                  f"{m['warm_hits']} warm / {m['cold_plans']} cold plans so far | observe "
+                  f"{m['observe_us_per_step']:.0f} us/round | table n_phases {t.n_phases[0].item()} caps "
+                  f"{t.caps[0].tolist()} envelope {list(t.envelope)} | table_rebuilds {m['table_rebuilds']} | "
+                  f"routed {routed:.0f} admitted {admitted:.0f} dropped {dropped:.0f} | plan {dres.plan_ms[r]:.2f} ms "
+                  f"prefill {dres.prefill_ms[r]:.1f} ms decode {dres.decode_ms[r]:.1f} ms "
+                  f"({dres.decode_ms[r] / DRIFT_NEW_TOKENS:.2f} ms/step) ({card})")
+            hd = host_rt.observe(demand_estimate(mcfg, float(BATCH * PROMPT * cfg.moe.top_k), host_scen, r))
+            if (hd.changed, hd.replanned, hd.key, hd.actions) != (d.changed, d.replanned, d.key, d.actions) or \
+                    not tables_equal(t, host_rt.table()):
+                fail(f"drift {kind} round {r}: the device table or decision differs from the host runtime's")
+            if r and table_ptrs[r][0] == table_ptrs[r - 1][0] and table_ptrs[r][1] != table_ptrs[r - 1][1]:
+                fail(f"drift {kind} round {r}: a swap inside the envelope moved the table's storage")
+        print(f"drift {kind}: {controller_line(dres.controller[-1])} ({card}), launches {got} (expected {expect})")
+        if got != expect:
+            fail(f"drift {kind}: serving path launches {got}, expected {expect}")
+        if kind in ("shift", "hotspot") and not any(d.replanned for d in dres.decisions[1:]):
+            fail(f"drift {kind}: the controller never re-planned after round 0")
+        if not 0 < dres.admitted <= dres.routed or not torch.isfinite(dres.first_logits).all():
+            fail(f"drift {kind}: MoE stats inconsistent or non-finite logits")
+        for name in COUNTED:
+            drift_launches[name] += got[name]
+        if kind == "shift":
+            drift_table = dres.table
+    # the shift scenario's last (re-planned) table: K1 and K4 held per layer, logits kernel vs plain
+    bf16_prefill_check(prompt_sets[0], "after drift shift, its last table", drift_table)
+
+    del model, drift_table, dres
     torch.cuda.empty_cache()
 
     # the same prefill in f32, on all three prompt sets: the seeded model with f32
@@ -1075,7 +1169,8 @@ def main() -> None:
 
     # 11. the kernels line, then the result line
     path_launches = {
-        name: {"serve": launches[name], "train": train_launches[name], "rwkv_serve": rwkv_launches[name]}
+        name: {"serve": launches[name], "serve_drift": drift_launches[name], "train": train_launches[name],
+               "rwkv_serve": rwkv_launches[name]}
         for name in COUNTED
     }
     kernels = [

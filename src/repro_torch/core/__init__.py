@@ -1,23 +1,75 @@
-"""Host planner (numpy/scipy) and the device-side ``ScheduleTable``."""
+"""Host controller (numpy/scipy) and the device-side ``ScheduleTable``."""
 
-from repro_torch.core.decompose import STRATEGIES, decompose
-from repro_torch.core.maxweight import maxweight_decompose
-from repro_torch.core.runtime import DEFAULT_PLAN_KWARGS, plan_serving_table, routing_to_traffic
-from repro_torch.core.schedule import A2ASchedule, ScheduleTable, phase_envelope, plan_schedule
+from repro_torch.core.bvn import bvn_coefficients, bvn_decompose, bvn_decompose_batch
+from repro_torch.core.decompose import STRATEGIES, decompose, decompose_batch
+from repro_torch.core.drift import DRIFT_KINDS, DriftScenario
+from repro_torch.core.faults import (
+    FAULT_KINDS,
+    FabricFaultError,
+    FaultScenario,
+    NonFiniteLossError,
+    apply_link_mask,
+    check_schedule_mask,
+    fault_hook,
+)
+from repro_torch.core.maxweight import WarmState, maxweight_decompose, maxweight_decompose_batch, warm_state_of
+from repro_torch.core.runtime import (
+    ControllerConfig,
+    Decision,
+    ScheduleRuntime,
+    make_serving_controller,
+    routing_to_traffic,
+)
+from repro_torch.core.schedule import (
+    A2ASchedule,
+    ScheduleTable,
+    order_phases,
+    phase_envelope,
+    plan_schedule,
+    ring_schedule,
+)
+from repro_torch.core.selector import DEFAULT_PLAN_KWARGS, Proposal, ScheduleEntry, ScheduleSelector
+from repro_torch.core.sinkhorn import is_doubly_stochastic, sinkhorn
 from repro_torch.core.types import Decomposition, Phase, StackedPhases
 
 __all__ = [
     "A2ASchedule",
+    "ControllerConfig",
     "DEFAULT_PLAN_KWARGS",
+    "DRIFT_KINDS",
+    "Decision",
     "Decomposition",
+    "DriftScenario",
+    "FAULT_KINDS",
+    "FabricFaultError",
+    "FaultScenario",
+    "NonFiniteLossError",
     "Phase",
+    "Proposal",
     "STRATEGIES",
+    "ScheduleEntry",
+    "ScheduleRuntime",
+    "ScheduleSelector",
     "ScheduleTable",
     "StackedPhases",
+    "WarmState",
+    "apply_link_mask",
+    "bvn_coefficients",
+    "bvn_decompose",
+    "bvn_decompose_batch",
+    "check_schedule_mask",
     "decompose",
+    "decompose_batch",
+    "fault_hook",
+    "is_doubly_stochastic",
+    "make_serving_controller",
     "maxweight_decompose",
+    "maxweight_decompose_batch",
+    "order_phases",
     "phase_envelope",
     "plan_schedule",
-    "plan_serving_table",
+    "ring_schedule",
     "routing_to_traffic",
+    "sinkhorn",
+    "warm_state_of",
 ]

@@ -2,8 +2,11 @@
 
 A *phase* is one circuit configuration: a permutation ``perm`` over ``n``
 ranks, the per-pair slot ``alloc`` (tokens) and the tokens actually
-``sent``.  A *decomposition* is an ordered list of phases that together
-deliver the whole traffic matrix.  Counterpart of ``repro/core/types.py``.
+``sent``.  The circuit is held for ``max(alloc)`` token-times, so idle
+capacity (``alloc - sent`` and the spread between pairs) shows up as the
+scheduling bubbles the paper describes.  A *decomposition* is an ordered
+list of phases that together deliver the whole traffic matrix.
+Counterpart of ``repro/core/types.py``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,30 @@ class Phase:
         object.__setattr__(p, "sent", sent)
         return p
 
+    @property
+    def n(self) -> int:
+        return int(self.perm.shape[0])
+
+    @property
+    def duration_tokens(self) -> float:
+        """Circuit hold time in token units: the largest allocated slot."""
+        return float(self.alloc.max()) if self.alloc.size else 0.0
+
+    @property
+    def tokens_sent(self) -> float:
+        return float(self.sent.sum())
+
+    def recv_tokens(self) -> np.ndarray:
+        """Tokens received per destination rank in this phase."""
+        out = np.zeros(self.n)
+        np.add.at(out, self.perm, self.sent)
+        return out
+
+    def sent_matrix(self) -> np.ndarray:
+        m = np.zeros((self.n, self.n))
+        m[np.arange(self.n), self.perm] = self.sent
+        return m
+
 
 @dataclasses.dataclass(frozen=True)
 class StackedPhases:
@@ -69,6 +96,21 @@ class StackedPhases:
     @property
     def n(self) -> int:
         return int(self.perms.shape[1])
+
+    def durations(self) -> np.ndarray:
+        """Circuit hold time per phase: the largest allocated slot. [K]"""
+        if self.num_phases == 0:
+            return np.zeros(0)
+        return self.alloc.max(axis=1)
+
+    def recv_tokens(self) -> np.ndarray:
+        """Tokens received per destination rank per phase. [K, n]"""
+        k, n = self.perms.shape
+        out = np.zeros((k, n))
+        if k:
+            rows = np.repeat(np.arange(k), n)
+            np.add.at(out, (rows, self.perms.ravel()), self.sent.ravel())
+        return out
 
     def sent_matrix_total(self) -> np.ndarray:
         """Sum of per-phase sent matrices. [n, n]"""
@@ -114,6 +156,10 @@ class Decomposition:
     def num_phases(self) -> int:
         return len(self.phases)
 
+    @property
+    def total_duration_tokens(self) -> float:
+        return float(sum(p.duration_tokens for p in self.phases))
+
     def stacked(self) -> StackedPhases:
         """Stacked ``[K, n]`` view of the phases (built once, then cached)."""
         cached = getattr(self, "_stacked_cache", None)
@@ -122,9 +168,20 @@ class Decomposition:
             self._stacked_cache = cached
         return cached
 
+    def sent_total(self) -> np.ndarray:
+        return self.stacked().sent_matrix_total()
+
     def verify(self, *, atol: float = 1e-6) -> None:
         """All demand delivered, nothing invented."""
-        delivered = self.stacked().sent_matrix_total()
+        delivered = self.sent_total()
         if not np.allclose(delivered, self.matrix, atol=atol):
             diff = np.abs(delivered - self.matrix).max()
             raise AssertionError(f"{self.strategy}: delivered != demand (max err {diff:.3g})")
+
+    def reordered(self, order: list[int] | np.ndarray) -> "Decomposition":
+        """Same phases in another execution order.  Valid only where a
+        phase's ``sent`` does not depend on the order (max-weight clears
+        entries in full; BvN's framed delivery is order-dependent, so
+        reorder it before delivery)."""
+        phases = [self.phases[i] for i in order]
+        return Decomposition(self.matrix, phases, self.strategy, dict(self.meta))

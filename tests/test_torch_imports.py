@@ -46,7 +46,8 @@ def test_every_module_is_found():
         "repro_torch.kernels.flash_attention.ops", "repro_torch.models.transplant", "repro_torch.launch.serve",
         "repro_torch.launch.train", "repro_torch.launch.dryrun", "repro_torch.train.train_step",
         "repro_torch.optim.adamw", "repro_torch.data.pipeline", "repro_torch.core.drift", "repro_torch.core.traffic",
-        "repro_torch.kernels.rwkv_wkv.ops", "repro_torch.models.rwkv",
+        "repro_torch.kernels.rwkv_wkv.ops", "repro_torch.models.rwkv", "repro_torch.core.runtime",
+        "repro_torch.core.selector", "repro_torch.core.faults", "repro_torch.core.bvn", "repro_torch.core.sinkhorn",
     ):
         assert expected in names
 
@@ -78,5 +79,6 @@ def test_serve_entry_point_raises_without_card_unless_cpu(monkeypatch):
 
 
 def test_serve_rejects_drift_scenarios():
-    with pytest.raises(NotImplementedError, match="M6"):
-        serve_mod.main(["--smoke", "--drift", "shift", "--device", "cpu"])
+    """Only the scenarios ``core.drift`` defines are accepted."""
+    with pytest.raises(SystemExit):
+        serve_mod.main(["--smoke", "--drift", "sideways", "--device", "cpu"])

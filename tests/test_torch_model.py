@@ -33,7 +33,7 @@ from repro.models import Model as JaxModel
 
 from repro_torch.configs import smoke_config
 from repro_torch.launch.serve import uniform_estimate
-from repro_torch.core import plan_serving_table
+from repro_torch.core import make_serving_controller as port_serving_controller
 from repro_torch.models.transplant import load_reference
 
 B, S, NEW = 2, 16, 4
@@ -89,12 +89,14 @@ def test_prefill_decode_matches_jax(monkeypatch, dtype, tol, seed):
     model = load_reference(pcfg, jax.tree.map(np.array, params), device="cpu", dtype=dtype)
     prompts = np.random.default_rng(seed).integers(0, pcfg.vocab_size, size=(B, S)).astype(np.int32)
 
-    # the serving table: JAX controller's first table == the port's plan
+    # the serving table: the JAX controller's first table == the port controller's
     stats0 = uniform_estimate(pcfg, float(B * S * pcfg.moe.top_k))
     runtime, _ = make_serving_controller(jcfg, n_ranks=8, drift="none")
     runtime.observe(stats0)
     jtable = runtime.table()
-    ptable = plan_serving_table(stats0, n_ranks=8, n_experts=pcfg.moe.n_experts)
+    pruntime, _ = port_serving_controller(pcfg, n_ranks=8, drift="none", device="cpu")
+    pruntime.observe(stats0)
+    ptable = pruntime.table()
 
     jl, jt = _run_jax(jcfg, params, prompts, jtable, jdtype)
     pl, pt = _run_port(model, prompts, ptable, dtype)

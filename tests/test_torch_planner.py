@@ -18,7 +18,9 @@ from repro.core import make_serving_controller
 from repro.core import plan_schedule as jax_plan
 from repro.core import routing_to_traffic as jax_routing_to_traffic
 
-from repro_torch.core import ScheduleTable, decompose, plan_schedule, plan_serving_table, routing_to_traffic
+from repro_torch.configs import smoke_config
+from repro_torch.core import ScheduleTable, decompose, plan_schedule, routing_to_traffic
+from repro_torch.core import make_serving_controller as port_serving_controller
 
 
 def _traffic(n: int, seed: int, density: float = 0.6) -> np.ndarray:
@@ -103,9 +105,17 @@ def test_routing_to_traffic_matches():
         )
 
 
+def _port_first_table(stats, n_layers: int) -> ScheduleTable:
+    """The port's serving controller's table after one observation."""
+    pcfg = dataclasses.replace(smoke_config("mixtral-8x7b"), n_layers=n_layers)
+    runtime, _ = port_serving_controller(pcfg, n_ranks=8, drift="none", device="cpu")
+    runtime.observe(stats)
+    return runtime.table()
+
+
 @pytest.mark.parametrize("n_slots,n_layers", [(4, 2), (16, 4), (32, 1)])
 def test_serving_table_equals_jax_controller_first_table(n_slots, n_layers):
-    """The port's planning function builds the JAX serving controller's
+    """The port's serving controller builds the JAX serving controller's
     first table for the engine's uniform estimate stats0."""
     cfg = dataclasses.replace(jax_smoke("mixtral-8x7b"), n_layers=n_layers)
     runtime, _ = make_serving_controller(cfg, n_ranks=8, drift="none")
@@ -116,8 +126,7 @@ def test_serving_table_equals_jax_controller_first_table(n_slots, n_layers):
     )
     runtime.observe(stats0)
     ref = runtime.table()
-    port = plan_serving_table(stats0, n_ranks=8, n_experts=cfg.moe.n_experts)
-    _assert_table_equal(port, ref)
+    _assert_table_equal(_port_first_table(stats0, n_layers), ref)
 
 
 def test_schedule_table_on_device_argument():
@@ -148,7 +157,6 @@ def test_serving_launcher_table_equals_jax_controller_under_drift_estimate():
     """The JAX serve launcher (--controller --drift none) feeds its
     controller tokens * DriftScenario("none").expert_probs(r); the port's
     launcher plans round 0 from the same estimate and gets the same table."""
-    from repro_torch.configs import smoke_config
     from repro_torch.core.drift import DriftScenario
     from repro_torch.launch.serve import demand_estimate, serve
     from repro_torch.models import Model
@@ -165,6 +173,6 @@ def test_serving_launcher_table_equals_jax_controller_under_drift_estimate():
     pcfg = dataclasses.replace(pcfg, moe=dataclasses.replace(pcfg.moe, dispatch="phase_pipelined"))
     est = demand_estimate(pcfg, tokens, DriftScenario("none", pcfg.moe.n_experts), 0)
     np.testing.assert_array_equal(est, stats)
-    _assert_table_equal(plan_serving_table(est, n_ranks=8, n_experts=8), ref)
+    _assert_table_equal(_port_first_table(est, 2), ref)
     res = serve(Model(pcfg, device="cpu"), batch=batch, prompt_len=prompt, new_tokens=1, rounds=rounds)
     _assert_table_equal(res.table, ref)
