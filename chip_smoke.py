@@ -47,6 +47,30 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    layers times and K4 rounds x layers times (every other kernel 0);
    then, under ``shift``'s last table, the bf16 check of 6 (K1 and K4
    held per layer, logits kernel vs plain path);
+6c. serve the same model through ``repro_torch.serve.ServeEngine`` (the
+   JAX drift run's knobs: 8 decode slots, buckets 64/128/256, a 4-entry
+   regime library): three phases of 24 requests (prompts of 17-257 tokens
+   from two token pools probed on the seeded layer-0 router, 8-24 new
+   tokens, one arrival a decode step), A, then ``capture_regime``, B, A2.
+   Decode is one CUDA graph under the device controller.  It fails unless
+   every request completes unrejected; one graph serves the whole run and
+   all three buckets are prefilled; a CPU twin of the controller, fed the
+   routing the engine copied to the host, ends each phase in the same
+   state (integer and bool leaves exactly, f32 within 1e-6); a cold
+   re-plan fires on the card; the replay equals the eager step function on
+   copies of its inputs, bit for bit, at each phase's first step, until
+   the first re-plan and at the step after the first cold re-plan, with K1
+   held against its plain version in every layer of those eager steps; the
+   first batch-1 prefill of each bucket, run again with K1 and K4 held in
+   every layer, gives the served row bit for bit; 8 slots at ragged
+   depths through one [B]-step decode equal each row's scalar decode at
+   the same width (its cache in every slot) bit for bit; and K1 launches
+   layers x (prefills + decode steps + the capture's warm-up step), K4
+   layers x prefills, every other kernel 0 (a replay counts the launches
+   its capture recorded).  It prints
+   each phase's serving numbers, decode ms/step (graph) beside eager steps
+   on the same inputs, prefill ms per bucket, the controller's metrics and
+   each re-plan's ms;
 7. one training step of full-width Mixtral at 1 layer, kernel path
    against plain path: loss and every gradient;
 8. train full-width Mixtral-8x7B cut to 2 layers (f32 masters, bf16
@@ -54,10 +78,11 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    under the launcher's lossless table; counts reset just before and read
    just after; the loss must be finite and fall; then one more step runs
    under ``torch.profiler`` and its device time is printed by kernel group;
-   then K4's and SDPA's device times at the prefill shape and
-   one more 4-layer Mixtral prefill, each from a trace (kept after the
-   timed serving and training: a profiler session slows the host's later
-   launches);
+   then K4's and SDPA's device times at the prefill shape,
+   one more 4-layer Mixtral prefill, and 6c's engine on the same model (a
+   short run, graph replays, one prefill per bucket), each from a trace
+   (kept after the timed serving and training: a profiler session slows
+   the host's later launches);
 9. K5 (the WKV6 recurrence) against its plain version at the RWKV6-7B
    prefill shape (r/k/v [4, 64, 1024, 64] bf16) from S = 0, and at T = 1
    and T = 37 from a carried state, with its time, the plain version's
@@ -85,6 +110,7 @@ last, ``{"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -92,6 +118,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
@@ -141,6 +169,19 @@ PEAK_LR, WARMUP = 3e-4, 2
 RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_ROUNDS, RWKV_CHECK_PROMPT = 4, 1024, 32, 2, 256
 # K5 vs plain: both f32 throughout (bf16 r/k/v widened first); only the order of the 64-term sums differs
 WKV_TOL = 1e-4
+# serving through the engine (phase 6c): the knobs of the JAX drift run (tests/test_serve.py, _drift_run) at
+# full width; per phase 24 requests, prompts of 17-257 tokens (all three buckets), 8-24 new tokens, one arrival
+# a decode step on average; prompts from two token pools of the seeded router
+ENGINE_KW = dict(
+    decode_slots=8, max_len=320, buckets=(64, 128, 256), n_ranks=8, regime_slots=4, regime_threshold=0.3,
+    drop_tolerance=0.01, hysteresis_steps=1, cooldown=2, ema=0.8, host_observe_every=14,
+    plan_overrides=dict(quantum=1, min_cap=1, slack=1.0),
+)
+ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_SEED = 24, (17, 258), (8, 25), 6
+ENGINE_HOT, ENGINE_POOL = (6, 7), 64
+ENGINE_SLOT_PROMPTS = (17, 40, 63, 96, 129, 170, 220, 257)  # the per-slot check's ragged depths (prompt lengths)
+# the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
+ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
 
 
 def fail(msg: str) -> None:
@@ -685,7 +726,8 @@ def main() -> None:
         out = k1._launch(x, w_gate, w_up, w_down, row_valid)  # a comparison launch: not counted
         n = len(k1_layer_errs)
         k1_layer_errs.append(close(out, k1.moe_gemm_plain(x, w_gate, w_up, w_down, row_valid), f"K1 in layer {n}"))
-        if out[~k1.tile_occupancy(row_valid)].abs().max().item() != 0.0:
+        dark = out[~k1.tile_occupancy(row_valid)]
+        if dark.numel() and dark.abs().max().item() != 0.0:
             fail(f"K1 in layer {n}: dark tiles are not exact zeros")
         return out
 
@@ -806,6 +848,256 @@ def main() -> None:
             drift_table = dres.table
     # the shift scenario's last (re-planned) table: K1 and K4 held per layer, logits kernel vs plain
     bf16_prefill_check(prompt_sets[0], "after drift shift, its last table", drift_table)
+
+    def serve_engine_phase(model) -> dict:
+        """Phase 6c (see the module doc).  Returns the main path's launches
+        per kernel."""
+        from repro_torch.core import DeviceController
+        from repro_torch.models.layers import rmsnorm
+        from repro_torch.serve import Request, ServeEngine
+
+        eng = ServeEngine(mcfg, model, **ENGINE_KW)
+        ctrl = eng._ctrl
+        # the prompts' token pools, probed on layer 0's router (its input taken
+        # as the normed embedding): pool A routes top-2 into HOT, pool B avoids it
+        blk = model.layers[0]
+        top = torch.topk(rmsnorm(model.embed.float(), blk.ln2, eps=mcfg.norm_eps) @ blk.ffn.router.float(),
+                         mcfg.moe.top_k, dim=-1).indices
+        in_hot = torch.isin(top, torch.tensor(ENGINE_HOT, device=dev))
+        pools = {"A": torch.nonzero(in_hot.all(-1)).flatten()[:ENGINE_POOL].cpu().numpy(),
+                 "B": torch.nonzero(~in_hot.any(-1)).flatten()[:ENGINE_POOL].cpu().numpy()}
+        if min(len(v) for v in pools.values()) < 8:
+            fail(f"engine phase: token pools too small ({ {k: len(v) for k, v in pools.items()} })")
+        rng = np.random.default_rng(ENGINE_SEED)
+
+        def trace(pool):
+            """bench_serve's trace shape: exponential gaps at 1 request a decode step."""
+            arrivals = np.floor(np.cumsum(rng.exponential(1.0, ENGINE_REQUESTS))).astype(int)
+            return [Request(prompt=rng.choice(pool, int(rng.integers(*ENGINE_PROMPT))),
+                            max_new_tokens=int(rng.integers(*ENGINE_NEW)), arrival=float(a)) for a in arrivals]
+
+        # a CPU twin of the controller, fed the routing the engine copies to the host, step for step
+        twin, twin_state = DeviceController(ctrl.cfg, device="cpu"), eng._state.clone("cpu")
+        fed: list = []
+        # each call of the step function, by kind: captured (a replay launches what the
+        # capture recorded; replays do not pass the wrappers' counters), the capture's
+        # warm-up step (a real decode step on copies), or a comparison (graph vs eager)
+        real_step, kinds, comparing = ServeEngine._step, {}, [False]
+
+        def counted_step(self, *args):
+            before = read_counts()
+            out = real_step(self, *args)
+            kind = "captured" if torch.cuda.is_current_stream_capturing() else (
+                "comparison" if comparing[0] else "warmup")
+            calls = kinds.setdefault(kind, {"calls": 0, **dict.fromkeys(COUNTED, 0)})
+            calls["calls"] += 1
+            for name, n in read_counts().items():
+                calls[name] += n - before[name]
+            return out
+
+        real_decode, real_prefill = eng._decode_once, eng._prefill_row
+        steps, prefill_ms, held, first_fire_held = [], {}, [], [False]
+        # K1 and K4 held against their plain versions at the shapes this path gives
+        # them: batch-1 prefill per bucket, decode under the controller's tables
+        k_held = {"prefill": {}, "decode": [], "after_cold": None}
+
+        def kernels_held(what: str, fn, k4_layers: int):
+            """``fn()`` with every layer's K1 (and K4 in ``k4_layers`` layers)
+            held against its plain version (comparison launches, not counted)."""
+            k1_layer_errs.clear()
+            k4_layer_errs.clear()
+            with mock.patch.object(k1, "moe_gemm", held_k1), mock.patch.object(k4, "flash_attention", held_k4):
+                out = fn()
+            if len(k1_layer_errs) != LAYERS or len(k4_layer_errs) != k4_layers:
+                fail(f"engine {what}: K1 held in {len(k1_layer_errs)} and K4 in {len(k4_layer_errs)} layers, expected "
+                     f"{LAYERS} and {k4_layers}")
+            return out, (max(k1_layer_errs), max(k4_layer_errs, default=None))
+
+        def held_decode():
+            """Hold the replay against the eager step on copies (with K1 held in
+            every layer) at each phase's first step, at every step until the
+            first re-plan has been held, and at the step after the first cold
+            re-plan, the first under a table the auction planned on the card."""
+            after_cold = k_held["after_cold"] is None and bool(steps) and steps[-1]["fire"] and \
+                eng.replan_log[-1]["kind"] == "cold"
+            hold = not steps or steps[-1]["phase"] != phase[0] or not first_fire_held[0] or after_cold
+            if hold:
+                comparing[0] = True
+                ref, errs = kernels_held(f"decode step {len(steps) + 1}", eng.step_on_copies, 0)
+                comparing[0] = False
+                k_held["decode"].append((len(steps) + 1, errs[0]))
+                if after_cold:
+                    k_held["after_cold"] = len(steps) + 1
+            t0 = time.perf_counter()
+            nxt = real_decode()
+            ms = (time.perf_counter() - t0) * 1e3
+            out = eng.split_outputs(eng.last_outputs)
+            fed.append((out["routing"].copy(), out["dropped"].copy()))
+            steps.append({"phase": phase[0], "ms": ms, "fire": out["fire"]})
+            if hold:
+                live = torch.from_numpy(np.flatnonzero(eng.batcher.live)).to(dev)
+                same = np.array_equal(eng.last_outputs, ref["outputs"]) and all(
+                    torch.equal(mine[key][live], theirs[key][live])
+                    for mine, theirs in zip(eng._caches, ref["caches"]) for key in mine
+                ) and all(torch.equal(leaf, ref["state"].leaves()[name]) for name, leaf in eng._state.leaves().items())
+                held.append((phase[0], len(steps), out["fire"]))
+                if not same:
+                    fail(f"engine phase {phase[0]} decode step {len(steps)}: the graph replay differs from the "
+                         f"eager step function on copies of its inputs")
+                first_fire_held[0] |= out["fire"]
+            return nxt
+
+        def timed_prefill(req, bucket):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row, plen = real_prefill(req, bucket)
+            torch.cuda.synchronize()
+            if plen > 0:
+                prefill_ms.setdefault(bucket, []).append((time.perf_counter() - t0) * 1e3)
+            if plen > 0 and bucket not in k_held["prefill"]:
+                # the same prefill again with K1 and K4 held: it must also give the served row
+                again, k_held["prefill"][bucket] = kernels_held(
+                    f"prefill bucket {bucket}", lambda: real_prefill(req, bucket), LAYERS)
+                if not all(torch.equal(a[key], b[key]) for a, b in zip(row, again[0]) for key in a):
+                    fail(f"engine prefill bucket {bucket}: the row differs from the same prefill with K1 and K4 held")
+            return row, plen
+
+        eng._decode_once, eng._prefill_row = held_decode, timed_prefill
+        phase, snaps = [None], {}
+        reset_counts()
+        with mock.patch.object(ServeEngine, "_step", counted_step):
+            for name, pool in (("A", "A"), ("B", "B"), ("A2", "A")):
+                phase[0] = name
+                reqs = trace(pools[pool])
+                before = eng.metrics()["serve"]  # the engine's counters run on across phases
+                t0 = time.perf_counter()
+                out = eng.run(reqs)
+                wall = time.perf_counter() - t0
+                for routing, dropped in fed:
+                    twin.step(twin_state, routing, dropped)
+                fed.clear()
+                snaps[name] = out
+                s, c = out["serve"], out["compile"]
+                n_steps = s["decode_steps"] - before["decode_steps"]
+                rejected = s["requests"]["rejected"] - before["requests"]["rejected"]
+                done = sum(r.done for r in reqs)
+                tokens = sum(len(r.tokens) for r in reqs)
+                wait = np.percentile([r.admit_step - r.arrival for r in reqs], (50, 99))
+                print(f"engine phase {name}: completed {done}/{len(reqs)}, rejected {rejected} | decode steps {n_steps}, "
+                      f"occupancy {tokens / (n_steps * ENGINE_KW['decode_slots']):.3f} | queue wait p50/p99 "
+                      f"{wait[0]:.1f}/{wait[1]:.1f} steps | {tokens} tokens in {wall:.2f} s, {tokens / wall:.1f} tok/s "
+                      f"| compile {c} ({card})")
+                if done != len(reqs) or rejected:
+                    fail(f"engine phase {name}: {done} of {len(reqs)} completed, {rejected} rejected")
+                if c["decode_executables"] != 1:
+                    fail(f"engine phase {name}: {c['decode_executables']} decode graphs, expected one for the run")
+                # the card's controller state against the CPU twin's after the same routing
+                m, tm = out["controller"], twin.metrics(twin_state)
+                for leaf_name, leaf in eng._state.leaves().items():
+                    mine, theirs = leaf.cpu(), twin_state.leaves()[leaf_name]
+                    ok = torch.allclose(mine, theirs, rtol=1e-6, atol=0) if mine.is_floating_point() else \
+                        torch.equal(mine, theirs)
+                    if not ok:
+                        fail(f"engine phase {name}: controller leaf {leaf_name} differs from the CPU twin's")
+                if (m["device_replans"], m["regime_warm_swaps"]) != (tm["device_replans"], tm["regime_warm_swaps"]):
+                    fail(f"engine phase {name}: re-plans {m} against the CPU twin's {tm}")
+                print(f"engine phase {name}: controller {m} | the CPU twin fed the same routing agrees "
+                      f"(integer and bool leaves exactly, f32 within 1e-6)")
+                if name == "A":
+                    eng.capture_regime()
+                    twin.load_regimes(twin_state, eng._bank_tables, eng._bank_refs)
+        counted = read_counts()
+        del eng._decode_once, eng._prefill_row  # the class's own again (and no cycle through the wrappers)
+        if snaps["A2"]["compile"]["prefill_executables"] != len(ENGINE_KW["buckets"]):
+            fail(f"engine: {snaps['A2']['compile']['prefill_executables']} bucket shapes prefilled, "
+                 f"expected {len(ENGINE_KW['buckets'])}")
+        cold = [e["ms"] for e in eng.replan_log if e["kind"] == "cold"]
+        warm = [e["ms"] for e in eng.replan_log if e["kind"] == "warm"]
+        if not cold:
+            fail("engine: no cold re-plan fired on the card")
+        print(f"engine re-plans: cold {len(cold)} ({', '.join(f'{v:.1f}' for v in cold)} ms, the batched auction on "
+              f"the card), warm {len(warm)} ({', '.join(f'{v:.2f}' for v in warm)} ms) ({card})")
+        print(f"engine held graph vs eager exactly at {len(held)} steps (phase, step, fired): {held} ({card})")
+        if sorted(k_held["prefill"]) != sorted(ENGINE_KW["buckets"]) or k_held["after_cold"] is None:
+            fail(f"engine: K1/K4 held in prefill buckets {sorted(k_held['prefill'])}, K1 after a cold re-plan at step "
+                 f"{k_held['after_cold']}")
+        print(f"engine K1 and K4 held against their plain versions in every layer (tol {BF16_TOL} + {BF16_TOL}*|plain|;"
+              f" the replays equal these eager steps): batch-1 prefill, bucket: (K1, K4 max_abs_err) "
+              f"{ {b: tuple(f'{v:.4g}' for v in e) for b, e in sorted(k_held['prefill'].items())} }; decode, step: K1 "
+              f"max_abs_err {[(n, f'{v:.4g}') for n, v in k_held['decode']]}, step {k_held['after_cold']} the first "
+              f"under a cold re-plan's table ({card})")
+
+        # launches of the main path: the wrappers' counts, less the capture's (no
+        # launch) and the comparisons', plus each replay's recorded launches
+        captured, warmup = kinds["captured"], kinds.get("warmup", dict.fromkeys(COUNTED, 0) | {"calls": 0})
+        comparison = kinds.get("comparison", dict.fromkeys(COUNTED, 0))
+        if captured["calls"] != 1:
+            fail(f"engine: {captured['calls']} captures")
+        main = {name: counted[name] - captured[name] - comparison[name] + eng.graph_replays * captured[name]
+                for name in COUNTED}
+        n_prefill, n_decode = sum(len(v) for v in prefill_ms.values()), len(steps)
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(moe_gemm_grouped=LAYERS * (n_prefill + n_decode + warmup["calls"]),
+                      flash_attention_fwd=LAYERS * n_prefill)
+        print(f"engine launches: {main} (expected {expect}: K1 layers x (prefills {n_prefill} + decode steps "
+              f"{n_decode} + the capture's warm-up step {warmup['calls']}), K4 layers x prefills; {eng.graph_replays} "
+              f"replays of one graph recording {captured['moe_gemm_grouped']} K1 launches)")
+        if main != expect or eng.graph_replays != n_decode:
+            fail(f"engine launches {main}, expected {expect}")
+
+        # timings: decode steps by host clock (each ends in its device-to-host copy),
+        # prefill per bucket, then graph replay vs the eager step on the same inputs
+        plain = [st["ms"] for st in steps if not st["fire"]]
+        print(f"engine decode ms/step (graph, host clock, {len(plain)} steps without a re-plan): median "
+              f"{float(np.median(plain)):.2f}, mean {float(np.mean(plain)):.2f} ({card})")
+        for bucket, v in sorted(prefill_ms.items()):
+            print(f"engine prefill bucket {bucket}: {len(v)} prefills, median {float(np.median(v)):.2f} ms, "
+                  f"mean {float(np.mean(v)):.2f} ms ({card})")
+        caches = [{k: v.clone() for k, v in c.items()} for c in eng._caches]
+        state = eng._state.clone()
+        table = ctrl.table_of(state)
+        eager_ms = cuda_ms(lambda: eng._step(eng._inputs, caches, state, table), 5, warmup=1)
+        graph_ms = cuda_ms(eng._graph.replay, 5, warmup=1)
+        print(f"engine decode step on the same inputs (CUDA events): graph replay {graph_ms:.3f} ms, eager "
+              f"{eager_ms:.3f} ms ({card})")
+        del caches, state, table
+
+        # per-slot decode: 8 rows at ragged depths through one [B]-step decode,
+        # against each row's own scalar decode at the batch's width (its cache in
+        # all 8 slots), so that every GEMM runs at the same M and sums in the same
+        # order: the logits must be equal bit for bit.  A row decoded alone runs
+        # its GEMMs at M = 1, where cuBLAS sums in another order; that difference
+        # is printed, and it is no check of the per-slot path
+        pgen = torch.Generator(device=dev).manual_seed(ENGINE_SEED)
+        slots = ENGINE_KW["decode_slots"]
+        rows, alone, wide, last = [], [], [], []
+        for plen in ENGINE_SLOT_PROMPTS:
+            toks = torch.randint(0, mcfg.vocab_size, (1, plen), generator=pgen, device=dev)
+            cache = model.init_cache(1, ENGINE_KW["max_len"])
+            model.prefill(toks[:, :-1], cache)
+            rows.append([{k: v.clone() for k, v in c.items()} for c in cache])
+            replicated = [{k: torch.cat([v] * slots) for k, v in c.items()} for c in cache]
+            wide.append(model.decode_step(toks[:, -1].repeat(slots), replicated, plen - 1)[0][0])
+            alone.append(model.decode_step(toks[:, -1], cache, plen - 1)[0][0])
+            last.append(toks[0, -1])
+        batched = [{k: torch.cat([r[l][k] for r in rows]) for k in rows[0][l]} for l in range(LAYERS)]
+        depth = torch.tensor([p - 1 for p in ENGINE_SLOT_PROMPTS], dtype=torch.int32, device=dev)
+        got, wide = model.decode_step(torch.stack(last), batched, depth)[0], torch.stack(wide)
+        if not torch.isfinite(got).all() or not torch.equal(got, wide):
+            fail(f"per-slot decode: the [B]-step logits differ from per-row scalar decode at the same width by "
+                 f"{float((got - wide).abs().max()):.4g}")
+        print(f"per-slot decode, {slots} slots at depths {depth.tolist()}: [B]-step logits equal per-row scalar decode "
+              f"at the same width bit for bit (each row decoded alone, M = 1 GEMMs, differs from M = {slots} by max "
+              f"abs {float((wide - torch.stack(alone)).abs().max()):.4g})")
+        del eng, rows, batched
+        gc.collect()  # the engine's graph and caches, before the next phases' memory
+        torch.cuda.empty_cache()
+        return main, pools["A"]
+
+    # 6c. serve through the engine: the same model behind ServeEngine (the
+    # JAX drift run's knobs), continuous batching over 8 slots at ragged
+    # depths, the decode step one CUDA graph under the device controller
+    engine_launches, engine_pool = serve_engine_phase(model)
 
     del model, drift_table, dres
     torch.cuda.empty_cache()
@@ -964,11 +1256,48 @@ def main() -> None:
         model.prefill(prompts, caches, schedule=res.table)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    trace_report(prof, wall, "mixtral prefill trace", {
+    serve_groups = {
         "K1 gate_up": {"k1_gate_up_kernel"}, "K1 down": {"k1_down_kernel"}, "K4 flash": {"k4_flash_fwd_kernel"},
         "cuBLAS GEMM": cublas, "elementwise and reductions": elementwise,
-    })
-    del model, caches, prompts
+    }
+    trace_report(prof, wall, "mixtral prefill trace", serve_groups)
+    del caches, prompts
+
+    # where the engine's time goes (6c's path on the same seeded model): one
+    # short run traced whole (8 requests at once, pool A), then graph replays
+    # of its last decode step, then one prefill per bucket
+    from repro_torch.serve import Request, ServeEngine
+
+    def traced(what: str, fn) -> dict:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return trace_report(prof, wall, f"{what} ({card})", serve_groups)
+
+    trng = np.random.default_rng(ENGINE_SEED)
+    prompts_ = [trng.choice(engine_pool, n) for n in ENGINE_TRACE_PROMPTS]
+    eng = ServeEngine(mcfg_serve, model, **ENGINE_KW)
+    eng.run([Request(prompt=p_, max_new_tokens=ENGINE_TRACE_NEW) for p_ in prompts_])  # captures the graph
+    steps0, replans0 = eng.metrics()["serve"]["decode_steps"], len(eng.replan_log)
+    traced(f"engine run trace ({len(prompts_)} requests of {ENGINE_TRACE_NEW} new tokens at once)",
+           lambda: eng.run([Request(prompt=p_, max_new_tokens=ENGINE_TRACE_NEW) for p_ in prompts_]))
+    print(f"  engine run trace: {eng.metrics()['serve']['decode_steps'] - steps0} decode steps, "
+          f"{len(eng.replan_log) - replans0} re-plans, {len(prompts_)} prefills")
+    k1_us = traced(f"engine decode graph, {ENGINE_TRACE_REPLAYS} replays",
+                   lambda: [eng._graph.replay() for _ in range(ENGINE_TRACE_REPLAYS)])
+    k1_replay = [v for g in ("K1 gate_up", "K1 down") for v in k1_us.get(g, [])]
+    print(f"  engine decode graph: K1 {sum(k1_replay) / 1e3 / ENGINE_TRACE_REPLAYS:.4f} ms a replay "
+          f"({len(k1_replay)} kernels in {ENGINE_TRACE_REPLAYS} replays; 0 means the trace shows no kernel "
+          f"inside a replay) ({card})")
+    for bucket in ENGINE_KW["buckets"]:
+        req = next(r for r in (Request(prompt=p_, max_new_tokens=1) for p_ in prompts_)
+                   if eng.queue.bucket_of(r.prefill_len) == bucket)
+        traced(f"engine prefill bucket {bucket} (prompt {len(req.prompt)}, batch 1)",
+               lambda: eng._prefill_row(req, bucket))
+    del eng, model
     torch.cuda.empty_cache()
 
     # 9. K5 at the RWKV6-7B prefill shape from S = 0 (two decay draws: the
@@ -1169,8 +1498,8 @@ def main() -> None:
 
     # 11. the kernels line, then the result line
     path_launches = {
-        name: {"serve": launches[name], "serve_drift": drift_launches[name], "train": train_launches[name],
-               "rwkv_serve": rwkv_launches[name]}
+        name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
+               "train": train_launches[name], "rwkv_serve": rwkv_launches[name]}
         for name in COUNTED
     }
     kernels = [

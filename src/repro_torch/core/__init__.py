@@ -1,7 +1,15 @@
-"""Host controller (numpy/scipy) and the device-side ``ScheduleTable``."""
+"""Host controller (numpy/scipy), the device-side ``ScheduleTable``, and the
+device-resident controller with its batched auction LAP."""
 
 from repro_torch.core.bvn import bvn_coefficients, bvn_decompose, bvn_decompose_batch
 from repro_torch.core.decompose import STRATEGIES, decompose, decompose_batch
+from repro_torch.core.device_controller import (
+    DeviceController,
+    DeviceControllerConfig,
+    DeviceControllerState,
+    apply_link_mask_traced,
+    routing_to_traffic_traced,
+)
 from repro_torch.core.drift import DRIFT_KINDS, DriftScenario
 from repro_torch.core.faults import (
     FAULT_KINDS,
@@ -12,6 +20,7 @@ from repro_torch.core.faults import (
     check_schedule_mask,
     fault_hook,
 )
+from repro_torch.core.lap import auction_lap, auction_lap_batch, greedy_phases, matching_weight
 from repro_torch.core.maxweight import WarmState, maxweight_decompose, maxweight_decompose_batch, warm_state_of
 from repro_torch.core.runtime import (
     ControllerConfig,
@@ -39,6 +48,9 @@ __all__ = [
     "DRIFT_KINDS",
     "Decision",
     "Decomposition",
+    "DeviceController",
+    "DeviceControllerConfig",
+    "DeviceControllerState",
     "DriftScenario",
     "FAULT_KINDS",
     "FabricFaultError",
@@ -54,6 +66,9 @@ __all__ = [
     "StackedPhases",
     "WarmState",
     "apply_link_mask",
+    "apply_link_mask_traced",
+    "auction_lap",
+    "auction_lap_batch",
     "bvn_coefficients",
     "bvn_decompose",
     "bvn_decompose_batch",
@@ -61,8 +76,10 @@ __all__ = [
     "decompose",
     "decompose_batch",
     "fault_hook",
+    "greedy_phases",
     "is_doubly_stochastic",
     "make_serving_controller",
+    "matching_weight",
     "maxweight_decompose",
     "maxweight_decompose_batch",
     "order_phases",
@@ -70,6 +87,7 @@ __all__ = [
     "plan_schedule",
     "ring_schedule",
     "routing_to_traffic",
+    "routing_to_traffic_traced",
     "sinkhorn",
     "warm_state_of",
 ]

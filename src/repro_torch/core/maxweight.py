@@ -17,9 +17,13 @@ matching (§3.3).
 
 ``maxweight_decompose_reference`` keeps the plain loop as the parity
 oracle.  Counterpart of ``repro/core/maxweight.py``: the same LAP
-sequence on the same matrices.  Its ``backend="jax"`` (the batched
-auction of ``repro/core/lap_jax.py``) belongs to the device controller
-(ROADMAP M7) and raises here.
+sequence on the same matrices.  ``maxweight_decompose_batch``'s
+``backend="jax"`` keeps the reference's name for its batched solver: it
+solves each cold phase with the auction of ``core/lap.py`` (the
+counterpart of ``repro/core/lap_jax.py``) in place of scipy, and tags each
+result ``meta["lap_backend"] = "jax"`` as the reference does.  The auction
+solves each matrix of a stack independently, so one layer at a time gives
+the reference's batched result.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 from scipy.optimize import linear_sum_assignment
 
 from repro_torch.core.faults import apply_link_mask
+from repro_torch.core.lap import auction_lap
 from repro_torch.core.types import Decomposition, Phase, StackedPhases
 
 __all__ = [
@@ -69,16 +74,31 @@ def warm_state_of(decomp: Decomposition) -> WarmState:
     )
 
 
+def _scipy_perm(residual: np.ndarray) -> np.ndarray:
+    """The maximum-weight matching as ``perm[row] = col`` (Jonker-Volgenant)."""
+    rows, cols = linear_sum_assignment(residual, maximize=True)
+    perm = np.empty(residual.shape[0], dtype=np.int64)
+    perm[rows] = cols
+    return perm
+
+
+def _auction_perm(residual: np.ndarray) -> np.ndarray:
+    """The same matching from the auction (``backend="jax"``)."""
+    return auction_lap(residual).numpy().astype(np.int64)
+
+
 def _greedy_phases(
     residual: np.ndarray,
     *,
     max_matchings: int | None,
     min_fill: float,
     phases_done: int = 0,
+    solve=_scipy_perm,
 ) -> tuple[list[np.ndarray], list[np.ndarray], int]:
     """The greedy loop on ``residual`` (modified in place): the lists of
     (perm, sent) arrays and the count of greedy (pre-sweep) phases.  The
-    same LAP sequence as ``maxweight_decompose_reference``."""
+    same LAP sequence as ``maxweight_decompose_reference`` when ``solve``
+    is scipy's."""
     n = residual.shape[0]
     idx = np.arange(n)
     perms: list[np.ndarray] = []
@@ -87,9 +107,7 @@ def _greedy_phases(
     while residual.max() > 0 and len(perms) < hard_cap:
         if max_matchings is not None and len(perms) + phases_done >= max_matchings:
             break
-        rows, cols = linear_sum_assignment(residual, maximize=True)
-        perm = np.empty(n, dtype=np.int64)
-        perm[rows] = cols
+        perm = solve(residual)
         sent = residual[idx, perm].copy()
         if min_fill > 0.0:
             # defer near-empty pairs to a later, relatively heavier phase
@@ -103,9 +121,7 @@ def _greedy_phases(
     n_greedy = len(perms)
     # past the cap: sweep what is left with full-clear support matchings
     while residual.max() > 0:
-        rows, cols = linear_sum_assignment(residual, maximize=True)
-        perm = np.empty(n, dtype=np.int64)
-        perm[rows] = cols
+        perm = solve(residual)
         sent = residual[idx, perm].copy()
         if sent.sum() <= 0:
             break
@@ -201,6 +217,14 @@ def maxweight_decompose(
         demand is rerouted over each source row's survivors first
         (``faults.apply_link_mask``), so no phase matches a dark link.
     """
+    return _decompose(
+        matrix, max_matchings=max_matchings, min_fill=min_fill, warm_start=warm_start, link_mask=link_mask,
+        solve=_scipy_perm,
+    )
+
+
+def _decompose(matrix, *, max_matchings, min_fill, warm_start, link_mask, solve) -> Decomposition:
+    """``maxweight_decompose`` with its cold phases' LAP solver given."""
     a = np.asarray(matrix, dtype=np.float64)
     if (a < 0).any():
         raise ValueError("traffic matrix must be nonnegative")
@@ -227,7 +251,7 @@ def maxweight_decompose(
     n_greedy = perms.shape[0]
     if residual.max() > 0:
         cold_perms, cold_sents, cold_greedy = _greedy_phases(
-            residual, max_matchings=max_matchings, min_fill=min_fill, phases_done=perms.shape[0]
+            residual, max_matchings=max_matchings, min_fill=min_fill, phases_done=perms.shape[0], solve=solve
         )
         n_greedy += cold_greedy
         if cold_perms:
@@ -252,7 +276,11 @@ def maxweight_decompose_batch(
     """Decompose a stack ``[L, n, n]`` in one call, one ``Decomposition``
     per layer.  ``warm_start`` is a list aligned with the stack (None
     entries run cold); ``link_mask`` is one fabric-wide mask for every
-    layer (outages are physical).  ``backend="scipy"`` only."""
+    layer (outages are physical).  ``backend`` picks the cold phases' LAP
+    solver: ``"scipy"`` (Jonker-Volgenant, one matrix at a time) or
+    ``"jax"``, the reference's name for the batched auction (here
+    ``core.lap``; equal weight to scipy on integer counts, ties may break
+    differently).  Warm replays solve no LAP, whatever the backend."""
     stack = np.asarray(matrices, dtype=np.float64)
     if stack.ndim != 3 or stack.shape[1] != stack.shape[2]:
         raise ValueError(f"expected [L, n, n] stack, got {stack.shape}")
@@ -262,20 +290,22 @@ def maxweight_decompose_batch(
         raise ValueError("warm_start must align with the matrix stack")
     if backend not in ("scipy", "jax"):
         raise ValueError(f"unknown LAP backend {backend!r}; one of ('scipy', 'jax')")
-    if backend == "jax":
-        raise NotImplementedError(
-            "backend='jax': the batched auction LAP comes with the device-resident controller (ROADMAP M7)"
-        )
-    return [
-        maxweight_decompose(
+    solve = _scipy_perm if backend == "scipy" else _auction_perm
+    out = [
+        _decompose(
             stack[i],
             max_matchings=max_matchings,
             min_fill=min_fill,
             warm_start=warm_start[i] if warm_start is not None else None,
             link_mask=link_mask,
+            solve=solve,
         )
         for i in range(stack.shape[0])
     ]
+    if backend == "jax":
+        for d in out:
+            d.meta["lap_backend"] = "jax"
+    return out
 
 
 def maxweight_decompose_reference(

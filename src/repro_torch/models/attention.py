@@ -141,25 +141,42 @@ def attn_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     return y, cache
 
 
-def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict, step: int):
-    """One-token decode (x [B, 1, d]) at absolute position ``step``, every
-    batch row at the same depth.  Plain PyTorch: the JAX package runs this
-    as XLA einsums, not a kernel."""
+def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict, step):
+    """One-token decode (x [B, 1, d]).  ``step`` is the new token's absolute
+    position: a Python int (every row at one depth) or a [B] int32 tensor
+    (continuous batching: each row at its own depth, so cache writes
+    scatter per row at ``(row, slot)`` and the causal and window mask is
+    taken against per-row query positions).  The tensor form reads nothing
+    on the host, so a CUDA graph replays it with new values.  Plain
+    PyTorch: the JAX package runs this as XLA einsums, not a kernel."""
     b = x.shape[0]
-    positions = torch.full((1, 1), step, dtype=torch.int32, device=x.device)
+    per_slot = isinstance(step, torch.Tensor)
+    if per_slot:
+        if step.dim() != 1 or step.shape[0] != b:
+            raise ValueError(f"a per-slot step must be [{b}], got {tuple(step.shape)}")
+        step = step.to(device=x.device, dtype=torch.int32)
+        positions = step[:, None]
+    else:
+        positions = torch.full((1, 1), step, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
     slots = cache["k"].shape[1]
     slot = step % slots if cfg.sliding_window else step
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][:, slot] = step
+    if per_slot:
+        at = (torch.arange(b, device=x.device), slot.long())
+        qpos = step[:, None]  # [B, 1]
+    else:
+        at = (slice(None), slot)
+        qpos = step
+    cache["k"][at] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][at] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][at] = step
     kc, vc, pos = cache["k"], cache["v"], cache["pos"]
     kh = cfg.n_kv_heads
     qg = q.reshape(b, 1, kh, cfg.n_heads // kh, -1)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), kc.float())  # [B,K,G,1,T]
-    valid = (pos >= 0) & (pos <= step)
+    valid = (pos >= 0) & (pos <= qpos)
     if cfg.sliding_window:
-        valid &= (step - pos) < cfg.sliding_window
+        valid &= (qpos - pos) < cfg.sliding_window
     logits = torch.where(valid[:, None, None, None, :], logits, torch.full((), NEG, device=x.device))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w.to(vc.dtype), vc)  # [B, 1, K, G, D]

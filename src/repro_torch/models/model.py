@@ -141,13 +141,23 @@ class Model(nn.Module):
         return logits, caches
 
     @torch.inference_mode()
-    def decode_step(self, token: torch.Tensor, caches: list[dict], step: int, *, schedule=None, collect_stats=False):
-        """One decode step for token [B] at absolute position ``step``.
-        Returns (logits [B, V] f32, caches) (+ stats, as ``prefill``)."""
+    def decode_step(
+        self, token: torch.Tensor, caches: list[dict], step, *, schedule=None, collect_stats=False, live=None,
+    ):
+        """One decode step for token [B].  ``step`` is an int (every row at
+        that absolute position) or a [B] int32 tensor (continuous batching:
+        each slot at its own depth; ``attention.attn_decode``).  ``live``
+        ([B] bool, optional) masks vacated slots out of the MoE routing
+        counts, so a static-shape batch's garbage rows never count as
+        demand.  Returns (logits [B, V] f32, caches) (+ stats, as
+        ``prefill``)."""
         x = embed(self.embed, token[:, None], self.dtype)
+        token_weight = None if live is None else live.to(torch.float32)[:, None]
         stats = []
         for p, cache, row in zip(self.layers, caches, stack.schedule_rows(schedule, self.cfg)):
-            x, _, st = stack.block_decode(p, self.cfg, x, cache, step, row, collect_stats=collect_stats)
+            x, _, st = stack.block_decode(
+                p, self.cfg, x, cache, step, row, collect_stats=collect_stats, token_weight=token_weight
+            )
             stats.append(st)
         logits = self._logits(x)[:, 0]
         if collect_stats:

@@ -63,7 +63,7 @@ def _expert_ffn(p: MoE, x: torch.Tensor, row_valid: torch.Tensor) -> torch.Tenso
     return k1.moe_gemm(x, p.w_gate.to(x.dtype), p.w_up.to(x.dtype), p.w_down.to(x.dtype), row_valid)
 
 
-def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, *, return_stats: bool):
+def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, *, return_stats: bool, token_weight=None):
     m = ctx.moe
     t = x_loc.shape[0]
     idx, gates = _router(p, ctx.cfg, x_loc)
@@ -75,16 +75,20 @@ def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, *, return_stats: b
     y_loc = geom.ungroup(y_slots, packed.pos, packed.gate, t)  # [t, d] f32
     if not return_stats:
         return y_loc
-    counts = geom.routing_counts(idx, m.n_experts)[None, :]
+    counts = geom.routing_counts(idx, m.n_experts, weight=token_weight)[None, :]
     return y_loc, geom.stats_tree(counts, packed.admitted, packed.live)
 
 
-def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, schedule=None, return_stats: bool = False):
+def moe_apply(
+    p: MoE, cfg: ModelConfig, x: torch.Tensor, *, schedule=None, return_stats: bool = False, token_weight=None,
+):
     """The MoE FFN on x [B, S, d].  ``schedule`` is None or a
     ``ScheduleTable`` row.  With ``return_stats`` also returns
     ``{"routing": [1, E], "dropped": [1], "admitted": [1]}``: realized
     pre-drop demand, plan-admitted choices that packing cut, and the
-    plan-admitted choices."""
+    plan-admitted choices.  ``token_weight`` ([B, S] f32, optional,
+    stats-only) scales each token's routing count: the serving engine's
+    slot-liveness mask.  Vacated slots are still routed and admitted."""
     m = cfg.moe
     if isinstance(schedule, ScheduleTable) and not schedule.is_row:
         raise ValueError("moe_apply consumes per-layer rows — pass table.row(l)")
@@ -96,7 +100,8 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, schedule=None, retur
     b, s, d = x.shape
     t = b * s
     ctx = FabricContext(cfg=cfg, schedule=_DENSE.validate_schedule(schedule))
-    res = _pipeline_body(_DENSE, ctx, x.reshape(t, d), p, return_stats=return_stats)
+    weight = None if token_weight is None else token_weight.reshape(t)
+    res = _pipeline_body(_DENSE, ctx, x.reshape(t, d), p, return_stats=return_stats, token_weight=weight)
     if not return_stats:
         return res.to(x.dtype).reshape(b, s, d)
     y, stats = res

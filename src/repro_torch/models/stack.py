@@ -93,9 +93,12 @@ def block_prefill(p: Block, cfg: ModelConfig, x, cache: dict, schedule, *, colle
     return x, cache, stats
 
 
-def block_decode(p: Block, cfg: ModelConfig, x, cache: dict, step: int, schedule, *, collect_stats=False):
-    """One decode layer, updating ``cache`` in place.  Returns (x, cache,
-    stats-or-None)."""
+def block_decode(p: Block, cfg: ModelConfig, x, cache: dict, step, schedule, *, collect_stats=False,
+                 token_weight=None):
+    """One decode layer, updating ``cache`` in place.  ``step`` is an int
+    or a [B] per-slot position tensor (``attn.attn_decode``; an rwkv6 layer
+    ignores it); ``token_weight`` ([B, 1] f32) weights the MoE routing
+    counts only.  Returns (x, cache, stats-or-None)."""
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
     if p.kind == "rwkv6":
         y, (x_tm, s) = rwkv.rwkv_time_mix(p.mixer, cfg, h, state=(cache["x_tm"].to(h.dtype), cache["s"]))
@@ -103,25 +106,26 @@ def block_decode(p: Block, cfg: ModelConfig, x, cache: dict, step: int, schedule
     y, cache = attn.attn_decode(p.mixer, cfg, h, cache, step)
     x = x + y
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
-    x, stats = _ffn(p, cfg, x, h, schedule, collect_stats)
+    x, stats = _ffn(p, cfg, x, h, schedule, collect_stats, token_weight)
     return x, cache, stats
 
 
 def _rwkv_channel(p: Block, cfg, x, cache: dict, x_tm, s, x_cm_last):
     """The rwkv6 block after its time mix: channel mix, then the new state
-    (the tokens in the cache's dtype, S in f32) into ``cache``."""
+    (the tokens in the cache's dtype, S in f32) copied into ``cache``'s own
+    tensors, so a captured decode step carries it from replay to replay."""
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
     state = None if x_cm_last is None else x_cm_last.to(h.dtype)
     y, x_cm = rwkv.rwkv_channel_mix(p.mixer, h, state=state)
-    cache["x_tm"] = x_tm.to(cache["x_tm"].dtype)
-    cache["s"] = s
-    cache["x_cm"] = x_cm.to(cache["x_cm"].dtype)
+    cache["x_tm"].copy_(x_tm)
+    cache["s"].copy_(s)
+    cache["x_cm"].copy_(x_cm)
     return x + y, cache, None
 
 
-def _ffn(p: Block, cfg, x, h, schedule, collect_stats):
+def _ffn(p: Block, cfg, x, h, schedule, collect_stats, token_weight=None):
     if collect_stats:
-        y, stats = moe_apply(p.ffn, cfg, h, schedule=schedule, return_stats=True)
+        y, stats = moe_apply(p.ffn, cfg, h, schedule=schedule, return_stats=True, token_weight=token_weight)
         return x + y, stats
     return x + moe_apply(p.ffn, cfg, h, schedule=schedule), None
 

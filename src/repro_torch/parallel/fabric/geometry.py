@@ -117,11 +117,16 @@ def admission_mask(idx, gates, row: ScheduleTable, n_experts: int, *, src):
     return gates * admitted.reshape(gates.shape), admitted
 
 
-def routing_counts(idx, n_experts: int):
-    """Realized per-expert demand from [T, k] expert ids (pre-drop, f32)."""
+def routing_counts(idx, n_experts: int, weight=None):
+    """Realized per-expert demand from [T, k] expert ids (pre-drop, f32).
+    ``weight`` ([T] f32, optional) scales each token's count: the serving
+    engine's slot-liveness mask, so vacated decode slots count nothing."""
     flat = idx.reshape(-1).long()
-    ones = torch.ones(flat.shape[0], dtype=torch.float32, device=idx.device)
-    return torch.zeros(n_experts, dtype=torch.float32, device=idx.device).index_add_(0, flat, ones)
+    if weight is None:
+        w = torch.ones(flat.shape[0], dtype=torch.float32, device=idx.device)
+    else:
+        w = weight.to(torch.float32)[:, None].expand(idx.shape).reshape(-1)
+    return torch.zeros(n_experts, dtype=torch.float32, device=idx.device).index_add_(0, flat, w)
 
 
 def stats_tree(counts, admitted, live) -> dict:

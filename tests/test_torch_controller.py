@@ -169,8 +169,12 @@ def test_maxweight_decompose_batch_equals_per_layer_calls(min_fill):
                                                                 link_mask=mask))
         _assert_decomp_equal(batch[l], jbatch[l])
     assert [d.meta["warm_hit"] for d in batch] == [False, True, False, False]
-    with pytest.raises(NotImplementedError, match="M7"):
-        pc.maxweight_decompose_batch(stack, backend="jax")
+    # the batched auction (core/lap.py) gives the reference's matchings exactly
+    auction = pc.maxweight_decompose_batch(stack, min_fill=min_fill, warm_start=warm, link_mask=mask, backend="jax")
+    jauction = jc.maxweight_decompose_batch(stack, min_fill=min_fill, warm_start=jwarm, link_mask=mask, backend="jax")
+    for a, b in zip(auction, jauction):
+        _assert_decomp_equal(a, b)
+        assert a.meta["lap_backend"] == b.meta["lap_backend"] == "jax"
 
 
 @pytest.mark.parametrize("strategy", ["maxweight", "shift", "bvn", "bvn-bottleneck"])

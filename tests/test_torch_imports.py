@@ -15,6 +15,7 @@ import repro_torch
 from repro_torch.configs import smoke_config
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import Model
+from repro_torch.serve import ServeEngine
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
@@ -48,6 +49,8 @@ def test_every_module_is_found():
         "repro_torch.optim.adamw", "repro_torch.data.pipeline", "repro_torch.core.drift", "repro_torch.core.traffic",
         "repro_torch.kernels.rwkv_wkv.ops", "repro_torch.models.rwkv", "repro_torch.core.runtime",
         "repro_torch.core.selector", "repro_torch.core.faults", "repro_torch.core.bvn", "repro_torch.core.sinkhorn",
+        "repro_torch.core.lap", "repro_torch.core.device_controller", "repro_torch.serve.queue",
+        "repro_torch.serve.batcher", "repro_torch.serve.metrics", "repro_torch.serve.engine",
     ):
         assert expected in names
 
@@ -82,3 +85,14 @@ def test_serve_rejects_drift_scenarios():
     """Only the scenarios ``core.drift`` defines are accepted."""
     with pytest.raises(SystemExit):
         serve_mod.main(["--smoke", "--drift", "sideways", "--device", "cpu"])
+
+
+def test_serve_engine_raises_without_card_unless_cpu(monkeypatch):
+    _no_card(monkeypatch)
+    cfg = smoke_config("mixtral-8x7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, decode_slots=2, max_len=16, buckets=(4,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, decode_slots=2, max_len=16, buckets=(4,), device="cuda")
+    eng = ServeEngine(cfg, decode_slots=2, max_len=16, buckets=(4,), device="cpu")
+    assert eng.device == torch.device("cpu") and eng.model.device == torch.device("cpu")
