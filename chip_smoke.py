@@ -83,6 +83,30 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    short run, graph replays, one prefill per bucket), each from a trace
    (kept after the timed serving and training: a profiler session slows
    the host's later launches);
+8b. (run between 7 and 8) the fault-tolerant loop, ``train_loop``, on
+   full-width Mixtral-8x7B cut to 1 layer at 1 x 2048 tokens (so the
+   chunked attention runs): the fused device-controller step under
+   ``plan_controller``'s controller, ef8, AdamW (peak 3e-4, warmup 2,
+   cosine over 10 steps), checkpoints every 5 steps keeping 1 in a
+   temporary directory under memory-backed ``/dev/shm`` where the machine
+   has one (three 27.4 GB checkpoints outrun a 45 GiB disk-write budget;
+   removed at the end; its free space, and the host memory it lives in,
+   must hold two checkpoints + 10%), one fault injected at step 7, then a second call
+   resuming to step 12.  Before the loop, ``attn_chunked`` is held
+   against ``attn_full`` on layer 0's inputs (output and gradients, f32
+   and bf16) and ef8 on the card against the CPU bit for bit on a slice
+   of one step's gradients.  It fails unless: one failure; the history's
+   steps unique, sorted and complete; final steps 10 and 12; the
+   checkpoints on disk those steps; the resumed parameters equal the
+   checkpoint's arrays bit for bit; replayed steps 5-6 give the first
+   pass's losses wherever their tables were the same (the controller's
+   cooldown is 10 steps, so they are); the losses finite and
+   falling; K1/K2/K3 launched 2/1/1 times for every executed step
+   (replays included), every other kernel 0; peak memory under 80 GB.
+   It prints each step's ms and tokens/s, each checkpoint's blocking
+   snapshot ms and background write s and GB/s, each restore's s, the
+   controller's re-plans and drop fraction, and the phase's wall time;
+   one more fused ef8 step of this model is traced after phase 8's trace;
 9. K5 (the WKV6 recurrence) against its plain version at the RWKV6-7B
    prefill shape (r/k/v [4, 64, 1024, 64] bf16) from S = 0, and at T = 1
    and T = 37 from a carried state, with its time, the plain version's
@@ -113,6 +137,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -180,6 +205,21 @@ ENGINE_KW = dict(
 ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_SEED = 24, (17, 258), (8, 25), 6
 ENGINE_HOT, ENGINE_POOL = (6, 7), 64
 ENGINE_SLOT_PROMPTS = (17, 40, 63, 96, 129, 170, 220, 257)  # the per-slot check's ragged depths (prompt lengths)
+# the fault-tolerant train loop (phase 8b): full-width Mixtral-8x7B cut to 1 layer, 1 x 2048 tokens (so the
+# chunked attention runs; the MoE shape of phases 5 and 7: C = 640), the fused device-controller step with ef8,
+# checkpoints every 5 steps keeping 1, one injected fault at step 7, then a second call resuming to step 12
+LOOP_BATCH, LOOP_SEQ, LOOP_LAYERS, LOOP_STEPS, LOOP_RESUME_STEPS = 1, 2048, 1, 10, 12
+LOOP_CKPT_EVERY, LOOP_KEEP, LOOP_FAULT_AT, LOOP_SEED = 5, 1, 7, 3
+# the device controller's cooldown in steps: it re-plans at step 1 (the primed plan does not fit the
+# random-weight router), and a 10-step cooldown keeps the checkpoint-to-fault window (steps 5-6) and its
+# replay under one table, so the replay check compares like with like (the default 5 re-planned at step 6)
+LOOP_COOLDOWN = 10
+# attn_chunked vs attn_full on one layer's inputs, relative L2 of the output and of each gradient: in f32
+# only the sum order differs; in bf16 (the training dtype) the two round p at different points (unnormalized
+# in blocks vs normalized), so the bf16 check takes GRAD_REL_TOL
+CHUNKED_F32_TOL = 1e-5
+LOOP_PEAK_GB = 80.0
+
 # the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
 ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
 
@@ -378,6 +418,255 @@ def main() -> None:
 
     def read_counts():
         return {name: fn.launches for name, fn in COUNTED.items()}
+
+    def rel_l2(a, b) -> float:
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def train_loop_phase(tcfg) -> dict:
+        """Phase 8b: ``train_loop`` on the card (checks and numbers in the module doc); returns its launches."""
+        import logging
+        import shutil
+        import tempfile
+
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.data import DataConfig, SyntheticStream
+        from repro_torch.launch.train import plan_controller
+        from repro_torch.models import attention
+        from repro_torch.models.layers import embed, rmsnorm
+        from repro_torch.optim import ef_int8_compress, ef_int8_init
+        from repro_torch.train import TrainLoopConfig, train_loop
+
+        t_phase = time.perf_counter()
+        lcfg = dataclasses.replace(tcfg, n_layers=LOOP_LAYERS)
+        model = Model(lcfg, device=dev, param_dtype=torch.float32, requires_grad=True, seed=LOOP_SEED)
+        n_params = sum(prm.numel() for prm in model.parameters())
+        print(f"train loop model: {lcfg.name} {LOOP_LAYERS} layer, {n_params / 1e9:.3f} B params (f32 masters), "
+              f"batch {LOOP_BATCH} x {LOOP_SEQ}, remat {lcfg.remat} ({card})")
+        data = DataConfig(vocab_size=lcfg.vocab_size, seq_len=LOOP_SEQ, global_batch=LOOP_BATCH)
+        batch0 = {key: torch.from_numpy(val).to(dev) for key, val in SyntheticStream(data).batch(0).items()}
+        _, ctrl, cstate = plan_controller(lcfg, batch=LOOP_BATCH, seq=LOOP_SEQ, virtual_ranks=VIRTUAL_RANKS, device=dev,
+                                          cooldown=LOOP_COOLDOWN)
+        table0 = ctrl.table_of(cstate)
+        print(f"train loop controller: table caps {table0.caps[0].tolist()}, envelope {list(table0.envelope or [])}")
+
+        # attn_chunked against attn_full on layer 0's inputs: output and gradients
+        att, cgen = model.layers[0].mixer, torch.Generator(device=dev).manual_seed(4)
+        for dtype, tol in ((torch.float32, CHUNKED_F32_TOL), (torch.bfloat16, GRAD_REL_TOL)):
+            with torch.no_grad():
+                h = rmsnorm(embed(model.embed, batch0["tokens"], dtype), model.layers[0].ln1, eps=lcfg.norm_eps)
+            ct = torch.randn(h.shape, generator=cgen, device=dev).to(dtype)
+            outs = {}
+            for name, fn in (("chunked", attention.attn_chunked), ("full", attention.attn_full)):
+                x = h.detach().clone().requires_grad_(True)
+                for prm in att.parameters():
+                    prm.grad = None
+                y = fn(att, lcfg, x)
+                y.backward(ct)
+                outs[name] = [y.detach(), x.grad, *(getattr(att, n).grad.clone() for n in "qkvo")]
+            errs = [rel_l2(a, b) for a, b in zip(outs["chunked"], outs["full"])]
+            finite = all(bool(torch.isfinite(t).all()) for t in outs["chunked"])
+            print(f"attn_chunked vs attn_full at {LOOP_SEQ} tokens, {str(dtype)[6:]}: rel L2 output {errs[0]:.3g}, "
+                  f"dx {errs[1]:.3g}, dWq/k/v/o {', '.join(f'{e_:.3g}' for e_ in errs[2:])} (tol {tol}) ({card})")
+            if not finite or max(errs) > tol:
+                fail(f"attn_chunked differs from attn_full in {dtype}: rel L2 {errs} (tol {tol})")
+            del outs, h, ct
+        for prm in att.parameters():
+            prm.grad = None
+
+        # ef8 on the card against the CPU on a slice of one step's gradients (two steps, so the
+        # residual carries), then the time of one compression of every gradient
+        # (and whether one step's loss and gradients repeat bit for bit: what the replay check rests on)
+        runs = []
+        for _ in range(2):
+            for prm in model.parameters():
+                prm.grad = None
+            loss = model.loss(batch0, schedule=table0)
+            loss.backward()
+            runs.append((loss.detach().clone(), {n: prm.grad.clone() for n, prm in model.named_parameters()}))
+        differ = [n for n in runs[0][1] if not torch.equal(runs[0][1][n], runs[1][1][n])]
+        print(f"train step twice on the same state and table: loss equal {torch.equal(runs[0][0], runs[1][0])}, "
+              f"gradient leaves differing {differ or 'none'}")
+        del runs
+        names = ("layers.0.ffn.w_gate", "layers.0.ffn.router", "layers.0.ln1", "head")
+        grads = {n: model.get_parameter(n).grad for n in names}
+        sl = {n: g.detach().reshape(-1)[: 1 << 22].clone() for n, g in grads.items()}
+        ef_card, ef_host = ef_int8_init(sl), ef_int8_init({n: g.to("cpu", copy=True) for n, g in sl.items()})
+        mism = 0
+        for scale_ in (1.0, 0.5):
+            g_card = {n: g * scale_ for n, g in sl.items()}
+            g_host = {n: g.to("cpu", copy=True) for n, g in g_card.items()}
+            ef_int8_compress(g_card, ef_card)
+            ef_int8_compress(g_host, ef_host)
+            mism += sum(int((g_card[n].cpu() != g_host[n]).sum()) + int((ef_card[n].cpu() != ef_host[n]).sum()) for n in sl)
+        print(f"ef8 card vs CPU on {sum(t.numel() for t in sl.values())} gradient elements of {len(sl)} leaves, "
+              f"2 steps: {mism} elements differ")
+        if mism:
+            fail(f"ef8 on the card differs from the CPU in {mism} elements")
+        all_grads = {n: prm.grad for n, prm in model.named_parameters()}
+        ef_all = ef_int8_init(all_grads)
+        ef_ms = cuda_ms(lambda: ef_int8_compress(all_grads, ef_all, model.reference_groups()), reps=3, warmup=1)
+        print(f"ef8 compression of all {n_params / 1e9:.3f} B gradients: {ef_ms:.2f} ms ({card})")
+        del sl, ef_card, ef_host, ef_all, all_grads, grads, loss
+        for prm in model.parameters():
+            prm.grad = None
+        torch.cuda.empty_cache()
+
+        # the card's machine takes at most 45 GiB of disk writes a call, and the phase writes three
+        # 27.4 GB checkpoints: they go to memory-backed /dev/shm where the machine has it (room: the
+        # host memory available), else to the temporary directory
+        shm = Path("/dev/shm")
+        in_memory = shm.is_dir() and os.access(shm, os.W_OK)
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=str(shm) if in_memory else None)
+        try:
+            ckpt_bytes = 4 * 4 * n_params  # f32 params, two moments, ef state
+            need = (LOOP_KEEP + 1) * ckpt_bytes * 1.1
+            free = shutil.disk_usage(ckpt_dir).free
+            if in_memory:
+                meminfo = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+                free = min(free, int(meminfo["MemAvailable"].split()[0]) * 1024)
+            print(f"train loop checkpoints in {ckpt_dir} ({'memory' if in_memory else 'disk'}): "
+                  f"{free / 1e9:.1f} GB free, need {need / 1e9:.1f} GB "
+                  f"(keep + 1 = {LOOP_KEEP + 1} checkpoints of {ckpt_bytes / 1e9:.2f} GB, + 10%)")
+            if free < need:
+                fail(f"train loop: {free / 1e9:.1f} GB free for checkpoints, {need / 1e9:.1f} GB needed")
+            seen, plans, fired, resumed = [], {}, [], {}
+
+            class Losses(logging.Handler):
+                def emit(self, record):
+                    if record.msg.startswith("step %d loss"):
+                        seen.append(record.args[:2])
+
+            def hook(step):
+                plans.setdefault(step, []).append(
+                    tuple(getattr(cstate, n).cpu().numpy().tobytes() for n in ("perms", "caps", "valid", "n_phases")))
+                if step == LOOP_FAULT_AT and not fired:
+                    fired.append(step)
+                    raise RuntimeError("injected fault")
+
+            def check_resume(step):
+                if not resumed:
+                    resumed.update(step=step, **{n: model.get_parameter(n).detach().to("cpu", copy=True) for n in leaf_names})
+
+            leaf_names = ("embed", "layers.0.ffn.w_gate", "layers.0.mixer.q", "ln_f")
+            logger = logging.getLogger("repro_torch.train")
+            handler = Losses(logging.INFO)
+            logger.addHandler(handler)
+            logger.setLevel(logging.INFO)
+            mgrs = [CheckpointManager(ckpt_dir, keep=LOOP_KEEP) for _ in range(2)]
+            lkw = dict(ckpt_dir=ckpt_dir, ckpt_every=LOOP_CKPT_EVERY, keep=LOOP_KEEP, peak_lr=PEAK_LR, warmup=WARMUP,
+                       log_every=1, grad_compress="ef8")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            try:
+                t0 = time.perf_counter()
+                res = train_loop(model, data, TrainLoopConfig(steps=LOOP_STEPS, **lkw), failure_hook=hook,
+                                 device_controller=ctrl, device_ctrl_state=cstate, manager=mgrs[0])
+                run_s = [time.perf_counter() - t0]
+                on_disk = [CheckpointManager(ckpt_dir).steps()]
+                with np.load(Path(ckpt_dir) / f"step_{LOOP_STEPS:08d}" / "arrays.npz") as z:
+                    saved = {n: torch.from_numpy(z[f"params/{n}"]) for n in leaf_names}
+                t0 = time.perf_counter()
+                res2 = train_loop(model, data, TrainLoopConfig(steps=LOOP_RESUME_STEPS, **lkw),
+                                  failure_hook=check_resume, device_controller=ctrl, device_ctrl_state=cstate,
+                                  manager=mgrs[1])
+                run_s.append(time.perf_counter() - t0)
+                on_disk.append(CheckpointManager(ckpt_dir).steps())
+            finally:
+                logger.removeHandler(handler)
+            counts = read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+        hist = res["history"] + res2["history"]
+        for h_ in hist:
+            print(f"train loop step {h_['step']}: loss {h_['loss']:.4f} | {h_['dt_s'] * 1e3:.1f} ms | "
+                  f"{LOOP_BATCH * LOOP_SEQ / h_['dt_s']:.0f} tok/s | device re-plans {h_['device_replans']}, "
+                  f"drop fraction {h_['drop_fraction']:.4f} ({card})")
+        saves = mgrs[0].saves + mgrs[1].saves
+        for rec in saves:
+            print(f"train loop checkpoint step {rec['step']}: snapshot {rec['snapshot_s'] * 1e3:.1f} ms blocking "
+                  f"({rec['nbytes'] / 1e9:.2f} GB to the host), background write {rec['write_s']:.1f} s "
+                  f"({rec['nbytes'] / 1e9 / rec['write_s']:.2f} GB/s) ({card})")
+        for rec in mgrs[0].restores + mgrs[1].restores:
+            print(f"train loop restore step {rec['step']}: {rec['s']:.1f} s ({card})")
+        ms = sorted(h_["dt_s"] * 1e3 for h_ in hist)
+        print(f"train loop: {len(hist)} logged steps, step median {ms[len(ms) // 2]:.1f} ms "
+              f"({LOOP_BATCH * LOOP_SEQ / (ms[len(ms) // 2] / 1e3):.0f} tok/s), runs {run_s[0]:.1f} + {run_s[1]:.1f} s, "
+              f"peak memory {peak_gb:.2f} GB | controller {res2['controller']} ({card})")
+
+        # recovery, checkpoints, restore
+        steps1, steps2 = [h_["step"] for h_ in res["history"]], [h_["step"] for h_ in res2["history"]]
+        if res["failures"] != 1 or res2["failures"] != 0:
+            fail(f"train loop failures {res['failures']} then {res2['failures']}, expected 1 then 0")
+        if steps1 != sorted(set(steps1)) or steps1 != list(range(LOOP_STEPS)) or steps2 != [LOOP_STEPS, LOOP_STEPS + 1]:
+            fail(f"train loop history steps {steps1} then {steps2}")
+        if (res["final_step"], res2["final_step"], resumed.get("step")) != (LOOP_STEPS, LOOP_RESUME_STEPS, LOOP_STEPS):
+            fail(f"train loop final steps {res['final_step']}, {res2['final_step']}, resumed at {resumed.get('step')}")
+        if on_disk != [[LOOP_STEPS], [LOOP_RESUME_STEPS]]:
+            fail(f"train loop checkpoints on disk {on_disk}, expected [[{LOOP_STEPS}], [{LOOP_RESUME_STEPS}]]")
+        bad = [n for n in leaf_names if not torch.equal(resumed[n], saved[n])]
+        print(f"train loop restore: {', '.join(leaf_names)} equal the step-{LOOP_STEPS} checkpoint bit for bit: {not bad}")
+        if bad:
+            fail(f"train loop: resumed parameters {bad} differ from the checkpoint's arrays")
+        # replayed steps: the first pass's losses wherever the tables were the same (this step's and
+        # those of the replayed steps before it, whose updates it starts from)
+        first, replay = dict(seen[:LOOP_FAULT_AT]), dict(seen[LOOP_FAULT_AT:LOOP_FAULT_AT + 2])
+        same_so_far = True
+        for s_ in sorted(replay):
+            same_so_far &= plans[s_][0] == plans[s_][1]
+            print(f"train loop replay step {s_}: loss {replay[s_]!r} vs first pass {first[s_]!r}, "
+                  f"same tables {same_so_far}, equal {replay[s_] == first[s_]}")
+            if same_so_far and replay[s_] != first[s_]:
+                fail(f"train loop: replayed step {s_} gives loss {replay[s_]!r}, the first pass {first[s_]!r}")
+        if sorted(replay) != list(range(LOOP_FAULT_AT - 2, LOOP_FAULT_AT)):
+            fail(f"train loop: replayed steps {sorted(replay)}")
+        losses = [h_["loss"] for h_ in hist]
+        if not all(math.isfinite(v) for v in losses) or not (losses[-1] + losses[-2]) / 2 < losses[0]:
+            fail(f"train loop losses not finite or not falling: {losses}")
+        executed = LOOP_FAULT_AT + (LOOP_STEPS - LOOP_CKPT_EVERY) + (LOOP_RESUME_STEPS - LOOP_STEPS)
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(moe_gemm_grouped=2 * LOOP_LAYERS * executed, moe_gemm_grouped_dgrad=LOOP_LAYERS * executed,
+                      moe_gemm_grouped_wgrad=LOOP_LAYERS * executed)
+        print(f"train loop launches over {executed} executed steps: {counts} (expected {expect})")
+        if counts != expect:
+            fail(f"train loop launches {counts}, expected {expect}")
+        if peak_gb >= LOOP_PEAK_GB:
+            fail(f"train loop peak memory {peak_gb:.2f} GB, over {LOOP_PEAK_GB} GB")
+        print(f"train loop phase: {time.perf_counter() - t_phase:.1f} s wall ({card})")
+        del model, ctrl, cstate, table0
+        torch.cuda.empty_cache()
+        return counts
+
+    def train_loop_step_trace(tcfg) -> None:
+        """Where the time of one fused ef8 step of phase 8b goes (a fresh seeded model; one warm-up step)."""
+        from repro_torch.data import DataConfig, SyntheticStream
+        from repro_torch.launch.train import plan_controller
+        from repro_torch.optim import AdamW, cosine_schedule
+        from repro_torch.train import make_train_step
+
+        lcfg = dataclasses.replace(tcfg, n_layers=LOOP_LAYERS)
+        model = Model(lcfg, device=dev, param_dtype=torch.float32, requires_grad=True, seed=LOOP_SEED)
+        _, ctrl, cstate = plan_controller(lcfg, batch=LOOP_BATCH, seq=LOOP_SEQ, virtual_ranks=VIRTUAL_RANKS, device=dev,
+                                          cooldown=LOOP_COOLDOWN)
+        step = make_train_step(model, AdamW(lr=cosine_schedule(PEAK_LR, WARMUP, LOOP_STEPS)), grad_compress="ef8",
+                               controller=ctrl)
+        stream = SyntheticStream(DataConfig(vocab_size=lcfg.vocab_size, seq_len=LOOP_SEQ, global_batch=LOOP_BATCH))
+        float(step(stream.batch(0), cstate)["loss"])
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            float(step(stream.batch(1), cstate)["loss"])
+            wall = (time.perf_counter() - t0) * 1e3
+        trace_report(prof, wall, f"train loop step trace (fused ef8 step, 1 layer, 1 x {LOOP_SEQ}) ({card})", {
+            "K2/K3 silu_grads": {"k23_silu_grads_kernel"}, "K2 dgrad": {"k2_dgrad_kernel"},
+            "K3 wgrad": {"k3_wgrad_gate_up_kernel", "k3_wgrad_down_kernel"}, "K1 gate_up": {"k1_gate_up_kernel"},
+            "K1 down": {"k1_down_kernel"}, "cuBLAS GEMM": cublas, "elementwise and reductions": elementwise,
+        })
+        del model, step, ctrl, cstate
+        torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cfg = get_config("mixtral-8x7b")
@@ -1195,6 +1484,12 @@ def main() -> None:
     del one, k_grads, p_grads
     torch.cuda.empty_cache()
 
+    # 8b (run before 8, so no profiler session precedes its timing). the
+    # fault-tolerant train loop: full-width Mixtral-8x7B cut to 1 layer
+    # through train_loop (fused device-controller step, ef8, chunked
+    # attention, checkpoints, one injected fault, a resumed second call)
+    loop_launches = train_loop_phase(tcfg)
+
     # 8. train full-width Mixtral-8x7B cut to 2 layers (the slice's main path)
     mcfg = dataclasses.replace(tcfg, n_layers=TRAIN_LAYERS)
     t0 = time.perf_counter()
@@ -1237,6 +1532,7 @@ def main() -> None:
     })
     del model
     torch.cuda.empty_cache()
+    train_loop_step_trace(tcfg)
 
     # K4's and SDPA's device times at the prefill shape, and where the time of
     # one more bf16 Mixtral prefill goes (the serving model again, its table)
@@ -1499,7 +1795,7 @@ def main() -> None:
     # 11. the kernels line, then the result line
     path_launches = {
         name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
-               "train": train_launches[name], "rwkv_serve": rwkv_launches[name]}
+               "train": train_launches[name], "train_loop": loop_launches[name], "rwkv_serve": rwkv_launches[name]}
         for name in COUNTED
     }
     kernels = [

@@ -1,6 +1,7 @@
 """Attention: GQA with RoPE, prefill through the flash kernel (K4),
 one-token decode against the KV cache, and the training path
-(``attn_train``: full masked attention in plain PyTorch with autograd).
+(``attn_train``: full masked attention, or the chunked online softmax
+beyond 2 * CHUNK tokens, in plain PyTorch with autograd).
 
 The KV cache of one layer is ``{"k", "v": [B, slots, K, D], "pos":
 [B, slots]}`` (``pos`` is the absolute position held in a slot, -1 when
@@ -12,15 +13,19 @@ writes the cache in place and returns the same dict.  Counterpart of
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as k4
 from repro_torch.models.layers import dense, normal_param, rope
 
 __all__ = [
-    "Attention", "attn_init", "init_cache", "attn_flash", "attn_prefill", "attn_decode", "attn_full", "attn_train",
+    "Attention", "attn_init", "init_cache", "attn_flash", "attn_prefill", "attn_decode", "attn_full", "attn_chunked",
+    "attn_train",
 ]
 
 NEG = -1e30
@@ -72,12 +77,12 @@ def _apply_out(p: Attention, out_bshd: torch.Tensor) -> torch.Tensor:
     return dense(out_bshd.reshape(b, s, -1), p.o)
 
 
-def _mask(cfg: ModelConfig, s: int, device) -> torch.Tensor:
-    """[S, S] bool: causal, and the sliding window when the arch has one."""
-    pos = torch.arange(s, device=device)
-    m = pos[None, :] <= pos[:, None]
+def _mask_pos(cfg: ModelConfig, qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
+    """[S, T] bool for query positions ``qpos`` and key positions ``kpos``:
+    causal, and the sliding window when the arch has one."""
+    m = kpos[None, :] <= qpos[:, None]
     if cfg.sliding_window:
-        m &= pos[:, None] - pos[None, :] < cfg.sliding_window
+        m &= qpos[:, None] - kpos[None, :] < cfg.sliding_window
     return m
 
 
@@ -92,19 +97,63 @@ def attn_full(p: Attention, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     kh = cfg.n_kv_heads
     qg = q.reshape(b, s, kh, cfg.n_heads // kh, -1)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())  # [B, K, G, S, T]
-    logits = torch.where(_mask(cfg, s, x.device), logits, torch.full((), NEG, device=x.device))
+    pos = positions[0]
+    logits = torch.where(_mask_pos(cfg, pos, pos), logits, torch.full((), NEG, device=x.device))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
     return _apply_out(p, out)
 
 
+def _kv_step(cfg: ModelConfig, qc, kc, vc, qpos, kpos, m_run, l_run, acc):
+    """One kv block of the online softmax: qc [B, c, K, G, D], kc/vc
+    [B, c, K, D]; carries m/l [B, K, G, c] and acc [B, K, G, c, D] (f32)."""
+    logits = torch.einsum("bskgd,btkd->bkgst", qc.float(), kc.float())
+    logits = torch.where(_mask_pos(cfg, qpos, kpos), logits, torch.full((), NEG, device=qc.device))
+    m_new = torch.maximum(m_run, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    scale = torch.exp(m_run - m_new)
+    l_new = l_run * scale + p.sum(dim=-1)
+    pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vc.dtype), vc)
+    return m_new, l_new, acc * scale[..., None] + pv.float()
+
+
+def attn_chunked(p: Attention, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Flash-style chunked attention over x [B, S, d], differentiable: a
+    loop over ``CHUNK``-token q blocks, each an online softmax over every
+    kv block (masked logits ``NEG``, the running max from -inf, f32
+    accumulators, output ``acc / max(l, 1e-30)``), each kv block
+    recomputed in the backward (``torch.utils.checkpoint``, as JAX's
+    ``jax.checkpoint``) instead of keeping its [B, K, G, c, c]
+    probabilities.  Counterpart of JAX ``attn_chunked``: plain PyTorch,
+    since JAX trains through this path too (K4 has no backward)."""
+    b, s, _ = x.shape
+    c = CHUNK
+    assert s % c == 0, (s, c)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    q, k, v = _qkv(p, cfg, x, positions)
+    kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kh
+    pos = positions[0]
+    outs = []
+    for i in range(s // c):
+        qc, qpos = q[:, i * c:(i + 1) * c].reshape(b, c, kh, g, hd), pos[i * c:(i + 1) * c]
+        m = torch.full((b, kh, g, c), -math.inf, dtype=torch.float32, device=x.device)
+        l = torch.zeros((b, kh, g, c), dtype=torch.float32, device=x.device)
+        acc = torch.zeros((b, kh, g, c, hd), dtype=torch.float32, device=x.device)
+        for j in range(s // c):
+            blk = slice(j * c, (j + 1) * c)
+            m, l, acc = checkpoint(_kv_step, cfg, qc, k[:, blk], v[:, blk], qpos, pos[blk], m, l, acc,
+                                   use_reentrant=False)
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)  # [B, S, K, G, D] f32
+    return _apply_out(p, out.to(x.dtype))
+
+
 def attn_train(p: Attention, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Training attention.  JAX runs ``attn_chunked`` beyond 2 * CHUNK
-    tokens; that path is not ported yet."""
+    """Training attention: ``attn_full`` up to 2 * CHUNK tokens,
+    ``attn_chunked`` beyond, as JAX ``attn_train`` switches."""
     if x.shape[1] > 2 * CHUNK:
-        raise NotImplementedError(
-            f"attn_train at {x.shape[1]} tokens: the chunked path (> {2 * CHUNK}) is not ported yet (ROADMAP)"
-        )
+        return attn_chunked(p, cfg, x)
     return attn_full(p, cfg, x)
 
 

@@ -79,6 +79,17 @@ class Model(nn.Module):
         tensor).  AdamW decays by this rank, as JAX does."""
         return {n: p.dim() + n.startswith("layers.") for n, p in self.named_parameters()}
 
+    def reference_groups(self) -> list[list[str]]:
+        """Parameter names grouped by the JAX leaf that holds them: one
+        group per block attribute (the leaf stacked over layers), one per
+        top-level parameter.  Error-feedback compression takes one scale
+        per group, as JAX takes one per leaf."""
+        groups: dict[str, list[str]] = {}
+        for n, _ in self.named_parameters():
+            key = "layers." + n.split(".", 2)[2] if n.startswith("layers.") else n
+            groups.setdefault(key, []).append(n)
+        return list(groups.values())
+
     def _hidden(self, tokens, schedule, collect_stats):
         x = embed(self.embed, tokens, self.dtype)
         return stack.stack_train(self.layers, self.cfg, x, schedule, collect_stats=collect_stats)

@@ -13,7 +13,41 @@ from typing import Any
 
 import torch
 
-__all__ = ["FabricContext", "PackedTokens", "check_wire_dtype"]
+__all__ = [
+    "SCHEDULE_KINDS", "FabricContext", "PackedTokens", "check_wire_dtype", "consumes_schedule", "consumes_table",
+]
+
+# what ``schedule=`` each JAX backend consumes (its ``schedule_kind``):
+# nothing, an optional table row (the virtual fabric), a static plan baked
+# into the executable, or traced ScheduleTable rows
+SCHEDULE_KINDS = {
+    "a2a": "none", "dense": "optional_row", "ppermute": "static", "phase_pipelined": "row", "ragged_a2a": "row",
+    "hierarchical": "row",
+}
+_SCHEDULED_ALIAS = "scheduled"  # static plan -> ppermute, table row -> phase_pipelined
+
+
+def _schedule_kind(name: str) -> str:
+    if name not in SCHEDULE_KINDS:
+        raise ValueError(
+            f"unknown dispatch mode {name!r}: registered fabrics are {', '.join(sorted(SCHEDULE_KINDS))} "
+            "(plus the 'scheduled' alias, which resolves by schedule type)"
+        )
+    return SCHEDULE_KINDS[name]
+
+
+def consumes_schedule(name: str) -> bool:
+    """Does this dispatch name *require* a planned schedule?  ``dense``'s
+    optional row does not count (it runs schedule-less unless handed
+    one).  Unknown names raise.  JAX ``fabric.consumes_schedule``."""
+    return name == _SCHEDULED_ALIAS or _schedule_kind(name) in ("static", "row")
+
+
+def consumes_table(name: str) -> bool:
+    """Does this dispatch name consume ``ScheduleTable`` rows that a
+    controller swaps between steps?  False for ``ppermute``, whose plans
+    the JAX package bakes into its executable.  JAX ``fabric.consumes_table``."""
+    return name == _SCHEDULED_ALIAS or _schedule_kind(name) == "row"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -100,3 +100,25 @@ def test_rank_in_group_equal():
 def test_round8_equal():
     for v in (0, 1, 8, 9, 320, 321):
         assert pg.round8(v) == jg.round8(v)
+
+
+@pytest.mark.parametrize("name", ["a2a", "dense", "ppermute", "phase_pipelined", "ragged_a2a", "hierarchical",
+                                  "scheduled"])
+def test_consumes_schedule_and_table_answer_as_the_jax_registry(name):
+    """The training loop's fail-fast checks key on these two answers."""
+    import repro.parallel.fabric as jax_fabric
+
+    from repro_torch.parallel.fabric import consumes_schedule, consumes_table
+
+    assert consumes_schedule(name) == jax_fabric.consumes_schedule(name)
+    assert consumes_table(name) == jax_fabric.consumes_table(name)
+
+
+def test_consumes_schedule_rejects_unknown_names_as_jax_does():
+    import repro.parallel.fabric as jax_fabric
+
+    from repro_torch.parallel.fabric import consumes_schedule, consumes_table
+
+    for fn in (consumes_schedule, consumes_table, jax_fabric.consumes_schedule, jax_fabric.consumes_table):
+        with pytest.raises(ValueError, match="unknown dispatch mode"):
+            fn("carrier_pigeon")

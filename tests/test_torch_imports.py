@@ -51,6 +51,7 @@ def test_every_module_is_found():
         "repro_torch.core.selector", "repro_torch.core.faults", "repro_torch.core.bvn", "repro_torch.core.sinkhorn",
         "repro_torch.core.lap", "repro_torch.core.device_controller", "repro_torch.serve.queue",
         "repro_torch.serve.batcher", "repro_torch.serve.metrics", "repro_torch.serve.engine",
+        "repro_torch.checkpoint.manager", "repro_torch.optim.compression", "repro_torch.train.loop",
     ):
         assert expected in names
 
