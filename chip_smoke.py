@@ -24,6 +24,17 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    launch beside ``torch.baddbmm`` on the same da/du and its own bound), and K3b (the
    ungrouped forward): its own path, forward and backward through
    autograd, counted and held against the plain versions;
+5b. the knee (``repro_torch.launch.simulate``): K1's device time (CUDA
+   events over back-to-back launches, rotating over 4 copies of the
+   weights) and per-call time (a synchronize after each call, the median)
+   against the tokens b on one of 8 virtual ranks of Mixtral-8x7B (1
+   expert of 4096 x 14336), DBRX (2 of 6144 x 10752) and Qwen3-MoE (16 of
+   4096 x 1536), b = 1 ... 16384, each fitted with ``fit_knee``; it fails
+   on a time that is not finite and positive, on a fit whose slope is
+   not positive, and unless K1 holds against its plain version at each
+   router's b = 4096 point; then Mixtral's Fig. 3 (``mmlu``) and Fig. 4
+   (``speed``) tables under the fitted device-time model and under the
+   paper's ``knee_model()``, with fig3's two ratios;
 6. serve full-width Mixtral-8x7B cut to 4 layers (random weights from a
    seed) through the scheduled MoE path: the controller plans a table
    (drift "none": a cold plan in round 0, kept in round 1), prefill,
@@ -71,6 +82,23 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    each phase's serving numbers, decode ms/step (graph) beside eager steps
    on the same inputs, prefill ms per bucket, the controller's metrics and
    each re-plan's ms;
+6d. serve full-width Qwen3-MoE-235B-A22B (128 experts top-8, F 1536,
+   head_dim 128 over d 4096, 64/4 heads) and DBRX-132B (16 experts top-4,
+   F 10752, d 6144, 48/8 heads), each cut to 2 layers, through ``serve``
+   (batch 4, prompt 256, 8 new tokens, 2 rounds, controller on,
+   ``phase_pipelined``): launch counts exact, tokens in range, logits
+   finite, a cold plan in round 0 kept in round 1 and equal to a host
+   runtime's, and K1 and K4 held against their plain versions on every
+   layer's own inputs inside a bf16 prefill; each model freed before the
+   next.  Then one full-width Mixtral MoE layer (4 x 256 tokens) under the
+   serving controller's first table row with ``wire_dtype`` bf16, fp8 and
+   int8: K1 held on the layer's own (dequantized) slots, the layer's
+   kernel path within K1's tolerance and one codec step of its plain
+   path, the routing and drop stats equal to the bf16 wire's bit for bit,
+   slots on the wire, and an error against the bf16 wire above 0 and
+   within ``WIRE_REL_TOL`` of the bf16 output's max magnitude; it prints
+   the QDQ's time beside K1's on the packed buffer and the dispatch bytes
+   a token (8192, 4100, 4100);
 7. one training step of full-width Mixtral at 1 layer, kernel path
    against plain path: loss and every gradient;
 8. train full-width Mixtral-8x7B cut to 2 layers (f32 masters, bf16
@@ -100,7 +128,8 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    checkpoints on disk those steps; the resumed parameters equal the
    checkpoint's arrays bit for bit; replayed steps 5-6 give the first
    pass's losses wherever their tables were the same (the controller's
-   cooldown is 10 steps, so they are); the losses finite and
+   cooldown is 10 steps, so they are), and at least one replayed step
+   was compared (the count is printed); the losses finite and
    falling; K1/K2/K3 launched 2/1/1 times for every executed step
    (replays included), every other kernel 0; peak memory under 80 GB.
    It prints each step's ms and tokens/s, each checkpoint's blocking
@@ -220,6 +249,17 @@ LOOP_COOLDOWN = 10
 CHUNKED_F32_TOL = 1e-5
 LOOP_PEAK_GB = 80.0
 
+# phase 6d: Qwen3-MoE-235B-A22B and DBRX-132B at full width, ARCH_LAYERS layers, batch and prompt of phase 6
+ARCHS, ARCH_LAYERS, ARCH_NEW = ("qwen3-moe-235b-a22b", "dbrx-132b"), 2, 8
+# the wire codecs' error against the bf16 wire, relative to the bf16 output's max magnitude.  It is the codecs'
+# rounding on both legs: fp8 e4m3 keeps 3 mantissa bits (half an ulp is 2^-4 relative), int8 half a step of a
+# slot's amax / 127 with amax ~4 sigma over 4096 features; measured 0.049 / 0.013 on a 1024-wide layer on the
+# CPU, so the limits leave about 2x
+WIRE_REL_TOL = {"fp8": 0.1, "int8": 0.03}
+# the knee (phase 5b): the routers whose virtual rank K1 is profiled at full width (8 ranks: 1 expert of
+# 4096 x 14336, 2 of 6144 x 10752, 16 of 4096 x 1536), the batch at which K1 is held against its plain version
+KNEE_ROUTERS, KNEE_CHECK_B = ("mixtral-8x7b", "dbrx", "qwen3-moe"), 4096
+
 # the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
 ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
 
@@ -292,12 +332,15 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as k4
     from repro_torch.kernels.moe_gemm import ops as k1
     from repro_torch.kernels.rwkv_wkv import ops as k5
-    from repro_torch.core import ScheduleRuntime, make_serving_controller
+    from repro_torch.core import ComputeModel, ScheduleRuntime, knee_model, make_serving_controller
     from repro_torch.core.schedule import TABLE_LEAVES
+    from repro_torch.launch import simulate
     from repro_torch.launch.serve import controller_line, demand_estimate, serve
     from repro_torch.launch.train import plan_table, train
     from repro_torch.models import Model
     from repro_torch.models import moe as moe_layer
+    from repro_torch.core.cost_models import MIN_SLOPE_US, wire_bytes_per_token
+    from repro_torch.parallel.fabric import DenseFabric, FabricContext, get_codec
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions run full f32 products
@@ -337,6 +380,29 @@ def main() -> None:
             fn()
         end.record()
         end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def graph_ms(fn, reps: int) -> float:
+        """ms a call of ``fn`` with the host's launch cost out of the way:
+        ``reps`` calls captured as one CUDA graph (after two on a side
+        stream), timed with CUDA events around a replay after an untimed one."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
         return start.elapsed_time(end) / reps
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -614,15 +680,20 @@ def main() -> None:
         # replayed steps: the first pass's losses wherever the tables were the same (this step's and
         # those of the replayed steps before it, whose updates it starts from)
         first, replay = dict(seen[:LOOP_FAULT_AT]), dict(seen[LOOP_FAULT_AT:LOOP_FAULT_AT + 2])
-        same_so_far = True
+        same_so_far, compared = True, 0
         for s_ in sorted(replay):
             same_so_far &= plans[s_][0] == plans[s_][1]
+            compared += same_so_far
             print(f"train loop replay step {s_}: loss {replay[s_]!r} vs first pass {first[s_]!r}, "
                   f"same tables {same_so_far}, equal {replay[s_] == first[s_]}")
             if same_so_far and replay[s_] != first[s_]:
                 fail(f"train loop: replayed step {s_} gives loss {replay[s_]!r}, the first pass {first[s_]!r}")
         if sorted(replay) != list(range(LOOP_FAULT_AT - 2, LOOP_FAULT_AT)):
             fail(f"train loop: replayed steps {sorted(replay)}")
+        print(f"train loop replay: {compared} of {len(replay)} replayed steps compared with the first pass "
+              f"(a step is compared while its table and those of the replayed steps before it are the first pass's)")
+        if compared == 0:
+            fail("train loop: no replayed step ran under the first pass's tables, so the replay compared nothing")
         losses = [h_["loss"] for h_ in hist]
         if not all(math.isfinite(v) for v in losses) or not (losses[-1] + losses[-2]) / 2 < losses[0]:
             fail(f"train loop losses not finite or not falling: {losses}")
@@ -944,6 +1015,42 @@ def main() -> None:
     )
     del x, go, wg, wu, wd, rv, all_live
     torch.cuda.empty_cache()
+
+    # 5b. the knee: K1's device and per-call time against the tokens on one virtual rank of each router, at
+    # full width, fitted with fit_knee; K1 held against its plain version at b = KNEE_CHECK_B; the paper's
+    # Fig. 3/4 tables for Mixtral under the fitted device-time model and under the paper's knee_model()
+    t_phase = time.perf_counter()
+    reset_counts()
+    knee = {}
+    for name in KNEE_ROUTERS:
+        prof = simulate.profile_knee(name, device=dev)
+        for line in simulate.knee_lines(prof):
+            print(f"{line} ({card})")
+        if not all(math.isfinite(t) and t > 0 for t in prof.device_us + prof.call_us):
+            fail(f"knee {name}: a time is non-finite or not positive: {prof.device_us} {prof.call_us}")
+        for what, fit in (("device", prof.device_fit), ("per-call", prof.call_fit)):
+            if not fit.per_token_us > MIN_SLOPE_US:  # fit_knee's slope when the tail's is not positive
+                fail(f"knee {name}: the {what} fit's slope is not positive ({fit.per_token_us})")
+        w0 = simulate.rank_weights(name, device=dev)[0]  # the first of the copies profile_knee timed
+        x, rv = simulate.rank_batch(name, KNEE_CHECK_B, device=dev)
+        out = k1._launch(x, *w0, rv)  # a comparison launch: not counted
+        err = close(out, k1.moe_gemm_plain(x, *w0, rv), f"K1 knee {name} b={KNEE_CHECK_B}")
+        print(f"K1 knee {name} b={KNEE_CHECK_B}: x{list(x.shape)} w[{prof.experts},{x.shape[2]},{w0[0].shape[2]}] "
+              f"max_abs_err {err:.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|)")
+        knee[name] = {
+            "experts": prof.experts, "batches": prof.batches, "device_us": prof.device_us, "call_us": prof.call_us,
+            "device_fit": [prof.device_fit.floor_us, prof.device_fit.per_token_us],
+            "call_fit": [prof.call_fit.floor_us, prof.call_fit.per_token_us], "max_abs_err": err,
+        }
+        del w0, x, rv, out
+        torch.cuda.empty_cache()
+    knee_launches = read_counts()
+    prof = knee["mixtral-8x7b"]
+    models = {"the measured device-time knee": ComputeModel(*prof["device_fit"], name="h100-k1-device"),
+              "the paper's knee_model()": knee_model()}
+    for line in simulate.table_lines("mixtral-8x7b", models):
+        print(f"{line} ({card})")
+    print(f"knee phase: {time.perf_counter() - t_phase:.1f} s wall, launches {knee_launches} ({card})")
 
     # 6. serve: full-width Mixtral-8x7B, 4 layers, scheduled MoE path
     mcfg = mcfg_serve = dataclasses.replace(
@@ -1346,8 +1453,8 @@ def main() -> None:
         state = eng._state.clone()
         table = ctrl.table_of(state)
         eager_ms = cuda_ms(lambda: eng._step(eng._inputs, caches, state, table), 5, warmup=1)
-        graph_ms = cuda_ms(eng._graph.replay, 5, warmup=1)
-        print(f"engine decode step on the same inputs (CUDA events): graph replay {graph_ms:.3f} ms, eager "
+        replay_ms = cuda_ms(eng._graph.replay, 5, warmup=1)
+        print(f"engine decode step on the same inputs (CUDA events): graph replay {replay_ms:.3f} ms, eager "
               f"{eager_ms:.3f} ms ({card})")
         del caches, state, table
 
@@ -1390,6 +1497,187 @@ def main() -> None:
 
     del model, drift_table, dres
     torch.cuda.empty_cache()
+
+    # 6d. Qwen3-MoE-235B-A22B and DBRX-132B at full width, cut to ARCH_LAYERS layers, through serve (the
+    # controller plans at 16 and 2 experts a virtual rank), with K1 and K4 held per layer in a bf16 prefill;
+    # then one full-width Mixtral MoE layer under a table row with the fp8 and int8 wire codecs
+    t_phase = time.perf_counter()
+    arch_launches, arch_rows = {}, {}
+    for arch in ARCHS:
+        acfg = get_config(arch)
+        scfg = dataclasses.replace(acfg, n_layers=ARCH_LAYERS,
+                                   moe=dataclasses.replace(acfg.moe, dispatch="phase_pipelined", use_pallas=True))
+        t0 = time.perf_counter()
+        amodel = Model(scfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        a_params = sum(prm.numel() for prm in amodel.parameters())
+        print(f"model: {arch} {ARCH_LAYERS} layers, {a_params / 1e9:.2f} B params ({2 * a_params / 1e9:.2f} GB bf16), "
+              f"{scfg.moe.n_experts} experts top-{scfg.moe.top_k} F {scfg.moe.d_ff_expert}, heads "
+              f"{scfg.n_heads}/{scfg.n_kv_heads} of {scfg.resolved_head_dim}, init {time.perf_counter() - t0:.1f} s")
+        reset_counts()
+        ares = serve(amodel, batch=BATCH, prompt_len=PROMPT, new_tokens=ARCH_NEW, rounds=ROUNDS, controller=True,
+                     virtual_ranks=VIRTUAL_RANKS, seed=0)
+        arch_launches[arch] = got = read_counts()
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(moe_gemm_grouped=ROUNDS * (1 + ARCH_NEW) * ARCH_LAYERS, flash_attention_fwd=ROUNDS * ARCH_LAYERS)
+        for r in range(ROUNDS):
+            print(f"{arch} serve round {r}: plan {ares.plan_ms[r]:.1f} ms | prefill {ares.prefill_ms[r]:.1f} ms "
+                  f"({BATCH * PROMPT / ares.prefill_ms[r] * 1e3:.0f} tok/s) | decode {ares.decode_ms[r]:.1f} ms "
+                  f"({ares.decode_ms[r] / ARCH_NEW:.2f} ms/step) ({card})")
+        print(f"{arch} serve: launches {got} (expected {expect}) | MoE routed {ares.routed:.0f}, admitted "
+              f"{ares.admitted:.0f}, dropped {ares.dropped:.0f} | table n_phases {ares.tables[-1].n_phases[0].item()} "
+              f"caps {ares.tables[-1].caps[0].tolist()} envelope {list(ares.tables[-1].envelope)} | "
+              f"{controller_line(ares.controller[-1])}")
+        if got != expect:
+            fail(f"{arch} serving path launches {got}, expected {expect}")
+        if ares.tokens.shape != (ROUNDS, BATCH, ARCH_NEW) or int(ares.tokens.min()) < 0 \
+                or int(ares.tokens.max()) >= scfg.vocab_size:
+            fail(f"{arch}: generated tokens out of range or misshapen: {tuple(ares.tokens.shape)}")
+        if ares.first_logits.shape != (BATCH, scfg.vocab_size) or not torch.isfinite(ares.first_logits).all():
+            fail(f"{arch}: prefill logits misshapen or non-finite")
+        if not 0 < ares.admitted <= ares.routed or ares.dropped < 0:
+            fail(f"{arch}: MoE stats inconsistent: routed {ares.routed}, admitted {ares.admitted}, dropped {ares.dropped}")
+        host_rt, host_scen = make_serving_controller(scfg, n_ranks=VIRTUAL_RANKS, drift="none", rounds=ROUNDS,
+                                                     device="cpu")
+        host_rt.observe(demand_estimate(scfg, float(BATCH * PROMPT * scfg.moe.top_k), host_scen, 0))
+        if [d_.actions for d_ in ares.decisions] != [("miss",), ("keep",)] or not all(
+                tables_equal(t, host_rt.table()) for t in ares.tables):
+            fail(f"{arch} serving tables: decisions {ares.decisions}, expected a cold plan in round 0 kept in round 1 "
+                 "equal to a host runtime's")
+        k1_layer_errs.clear()
+        k4_layer_errs.clear()
+        agen = torch.Generator(device=dev).manual_seed(11)
+        aprompts = torch.randint(0, scfg.vocab_size, (BATCH, PROMPT), generator=agen, device=dev)
+        first = {}  # layer 0's K1 and K4 inputs, timed below at this config's shapes
+
+        def held_k1_first(*args):
+            first.setdefault("k1", args)
+            return held_k1(*args)
+
+        def held_k4_first(q, k, v, **kw):
+            first.setdefault("k4", (q, k, v, kw))
+            return held_k4(q, k, v, **kw)
+
+        with mock.patch.object(k1, "moe_gemm", held_k1_first), mock.patch.object(k4, "flash_attention", held_k4_first):
+            held_logits = prefill_logits(aprompts, amodel, ares.table)
+        if len(k1_layer_errs) != ARCH_LAYERS or len(k4_layer_errs) != ARCH_LAYERS or not torch.isfinite(held_logits).all():
+            fail(f"{arch} bf16 prefill: K1 held in {len(k1_layer_errs)} and K4 in {len(k4_layer_errs)} of "
+                 f"{ARCH_LAYERS} layers, or non-finite logits")
+        xa, wga, wua, wda, rva = first["k1"]
+        ea, ca, da_ = xa.shape
+        fa = wga.shape[-1]
+        occ = k1.tile_occupancy(rva)
+        rows, live_e = int(occ.sum()), int(occ.any(dim=1).sum())
+        b_ms, b_by = bound(6.0 * da_ * fa * rows, rows * da_ * 2 + live_e * 3 * da_ * fa * 2 + ea * ca + ea * ca * da_ * 2)
+        k1_arch = {
+            "shape": f"x[{ea},{ca},{da_}] w[{ea},{da_},{fa}] occupied rows {rows}, live experts {live_e}",
+            "max_abs_err": max(k1_layer_errs), "ms": graph_ms(lambda: k1._launch(xa, wga, wua, wda, rva), 20),
+            "plain_ms": cuda_ms(lambda: k1.moe_gemm_plain(xa, wga, wua, wda, rva), 2, warmup=1),
+            "library_ms": graph_ms(lambda: torch.bmm(F.silu(torch.bmm(xa, wga)) * torch.bmm(xa, wua), wda), 20),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        qa, ka, va, kwa = first["k4"]
+        bq, hq, sq, dq = qa.shape
+        kvh = ka.shape[1]
+        b_ms, b_by = bound(4.0 * dq * bq * hq * sq * (sq + 1) / 2, 2 * (2 * bq * hq * sq * dq + 2 * bq * kvh * sq * dq))
+        k4_arch = {
+            "shape": f"q[{bq},{hq},{sq},{dq}] kv[{bq},{kvh},{sq},{dq}] causal, GQA group {hq // kvh}, the model's views",
+            "max_abs_err": max(k4_layer_errs), "ms": graph_ms(lambda: k4._launch(qa, ka, va, **kwa), 50),
+            "plain_ms": cuda_ms(lambda: plain_flash(qa, ka, va, **kwa), 10),
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                qa, ka, va, is_causal=True, scale=kwa.get("prescale", 1.0) * dq**-0.5, enable_gqa=True), 50),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        arch_rows[arch] = {"moe_gemm_grouped": k1_arch, "flash_attention_fwd": k4_arch}
+        for name, row in (("K1", k1_arch), ("K4", k4_arch)):
+            print(f"{arch}: {name} inside the {ARCH_LAYERS}-layer bf16 prefill, on each layer's own inputs: "
+                  f"max_abs_err {row['max_abs_err']:.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|) | layer 0's "
+                  f"{row['shape']}: kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.3f} ms | "
+                  f"{'torch.bmm SwiGLU' if name == 'K1' else 'SDPA'} {row['library_ms']:.4f} ms | bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of bound "
+                  f"({card})")
+        del first, xa, wga, wua, wda, rva, qa, ka, va
+        del amodel, ares, held_logits, host_rt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the wire codecs on the virtual fabric: one full-width Mixtral MoE layer (the serving shape, B x S tokens)
+    # under the serving controller's first table row, with wire_dtype bf16, fp8 and int8
+    wcfg = dataclasses.replace(cfg, n_layers=1, moe=dataclasses.replace(cfg.moe, dispatch="phase_pipelined",
+                                                                         use_pallas=True))
+    wgen = torch.Generator(device=dev).manual_seed(7)
+    wlayer = moe_layer.moe_init(wcfg, gen=wgen, device=dev, dtype=torch.bfloat16)
+    xw = torch.randn((BATCH, PROMPT, cfg.d_model), generator=wgen, device=dev).to(torch.bfloat16)
+    wrt, wscen = make_serving_controller(wcfg, n_ranks=VIRTUAL_RANKS, drift="none", device=dev)
+    wrt.observe(demand_estimate(wcfg, float(BATCH * PROMPT * cfg.moe.top_k), wscen, 0))
+    wrow = wrt.table().row(0)
+    reset_counts()
+    wire_out = {}
+    for wire in ("bf16", "fp8", "int8"):
+        c_ = dataclasses.replace(wcfg, moe=dataclasses.replace(wcfg.moe, wire_dtype=wire))
+        y, st = moe_layer.moe_apply(wlayer, c_, xw, schedule=wrow, return_stats=True)  # the kernel path, counted
+        k1_layer_errs.clear()
+        k1_max = []
+
+        def held_k1_max(*args):
+            out = held_k1(*args)
+            k1_max.append(float(out.abs().max()))
+            return out
+
+        with mock.patch.object(k1, "moe_gemm", held_k1_max):  # K1 on the layer's own (dequantized) slots
+            y_held = moe_layer.moe_apply(wlayer, c_, xw, schedule=wrow)
+        if not torch.equal(y_held, y):
+            fail(f"wire {wire}: the held run differs from the kernel path")
+        # kernel vs plain path with the combine leg's codec left out of both: K1's and its plain version's
+        # outputs differ by a rounding, which the combine leg's codec can move across a whole step, so the layer
+        # is held at K1's tolerance before wire_decode (the dispatch leg's codec runs in both, on the same x)
+        with mock.patch.object(DenseFabric, "wire_decode", lambda self, ctx, packed, y_slots: y_slots):
+            with mock.patch.object(k1, "moe_gemm", held_k1):
+                y_pre = moe_layer.moe_apply(wlayer, c_, xw, schedule=wrow)
+            with mock.patch.object(k1, "moe_gemm", k1.moe_gemm_plain):
+                y_plain_pre = moe_layer.moe_apply(wlayer, c_, xw, schedule=wrow)
+        x2 = xw.reshape(-1, cfg.d_model)
+        idx, gates = moe_layer._router(wlayer, c_, x2)
+        packed = DenseFabric().pack(FabricContext(cfg=c_, schedule=wrow), x2, idx, gates)
+        share = float(packed.wire.sum() / packed.live.sum())
+        step = get_codec(wire).max_step_over_amax * max(k1_max)
+        diff = (y_pre.float() - y_plain_pre.float()).abs()
+        worst = float((diff - BF16_TOL * y_plain_pre.float().abs()).max())
+        print(f"wire {wire}: K1 on the layer's slots max_abs_err {k1_layer_errs[0]:.4g} (tol {BF16_TOL} + "
+              f"{BF16_TOL}*|plain|) | layer kernel vs plain path before the combine leg's codec max "
+              f"{float(diff.max()):.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|; the codec's largest step at the "
+              f"largest expert output {step:.4g}) | slots on the wire {share:.4f} of the live | "
+              f"dispatch {wire_bytes_per_token(cfg.d_model, wire):.0f} bytes a token")
+        if not torch.isfinite(y).all() or worst > BF16_TOL:
+            fail(f"wire {wire}: the layer's kernel path differs from its plain path beyond K1's tolerance")
+        if wire == "bf16":
+            if packed.wire is None or share <= 0:
+                fail("wire: the table row marks no slot as crossing the virtual wire")
+            ref_y, ref_st = y, st
+        else:
+            for key in ("routing", "dropped", "admitted"):
+                if not torch.equal(st[key], ref_st[key]):
+                    fail(f"wire {wire}: stats {key} differ from the bf16 wire's")
+            err = float((y.float() - ref_y.float()).abs().max())
+            tol = WIRE_REL_TOL[wire] * float(ref_y.float().abs().max())
+            print(f"wire {wire}: vs the bf16 wire max abs {err:.4g} (tol {WIRE_REL_TOL[wire]} x max|bf16 output| = "
+                  f"{tol:.4g}), stats routing/dropped/admitted equal the bf16 wire's bit for bit")
+            if not 0 < err <= tol:
+                fail(f"wire {wire}: error against the bf16 wire {err:.4g}, expected above 0 and at most {tol:.4g}")
+            codec = get_codec(wire)
+            qdq_ms = graph_ms(lambda: codec.apply(packed.buf, packed.wire), 50)
+            gemm_ms = graph_ms(lambda: k1._launch(packed.buf, wlayer.w_gate, wlayer.w_up, wlayer.w_down, packed.live), 20)
+            wire_out[wire] = {"max_err_vs_bf16": err, "qdq_ms": qdq_ms, "k1_ms": gemm_ms, "wire_share": share,
+                              "bytes_per_token": wire_bytes_per_token(cfg.d_model, wire)}
+            print(f"wire {wire}: QDQ of the packed buffer {list(packed.buf.shape)} {qdq_ms:.4f} ms (one leg) beside K1 "
+                  f"on it {gemm_ms:.4f} ms ({card})")
+    wire_launches = read_counts()
+    print(f"wire codec layer launches (kernel path, one call a wire): {wire_launches}")
+    if wire_launches["moe_gemm_grouped"] != 3:
+        fail(f"wire codec layer: K1 launched {wire_launches['moe_gemm_grouped']} times, expected 3")
+    del wlayer, xw, wrt, wrow, packed, y, y_held, y_pre, y_plain_pre, ref_y
+    torch.cuda.empty_cache()
+    print(f"phase 6d: {time.perf_counter() - t_phase:.1f} s wall ({card})")
 
     # the same prefill in f32, on all three prompt sets: the seeded model with f32
     # weights and activations.  K1 and K4 take bf16, so in both paths each runs on its
@@ -1795,7 +2083,9 @@ def main() -> None:
     # 11. the kernels line, then the result line
     path_launches = {
         name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
-               "train": train_launches[name], "train_loop": loop_launches[name], "rwkv_serve": rwkv_launches[name]}
+               **{f"serve_{arch}": arch_launches[arch][name] for arch in ARCHS}, "wire_codecs": wire_launches[name],
+               "knee": knee_launches[name], "train": train_launches[name], "train_loop": loop_launches[name],
+               "rwkv_serve": rwkv_launches[name]}
         for name in COUNTED
     }
     kernels = [
@@ -1805,7 +2095,8 @@ def main() -> None:
             launches=sum(path_launches["moe_gemm_grouped"].values()),
             launches_by_path=path_launches["moe_gemm_grouped"],
             **{key: k1_rows["prefill"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")},
-            shape=k1_rows["prefill"]["shape"], decode=k1_rows["decode"],
+            shape=k1_rows["prefill"]["shape"], decode=k1_rows["decode"], knee=knee, wire_codecs=wire_out,
+            **{arch: arch_rows[arch]["moe_gemm_grouped"] for arch in ARCHS},
         ),
         dict(
             name="flash_attention_fwd", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -1815,6 +2106,7 @@ def main() -> None:
             **{key: k4_row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             shape=k4_row["shape"],
             **{key: k4_row[key] for key in K4_EXTRA_KEYS + ("model_call_max_abs_err",)},
+            **{arch: arch_rows[arch]["flash_attention_fwd"] for arch in ARCHS},
         ),
         *(
             dict(

@@ -1,6 +1,6 @@
 """Architecture registry: importing this package registers the configs.
 
-Mixtral-8x7B and RWKV6-7B are ported so far; ``smoke_config`` gives the reduced
+Mixtral-8x7B, Qwen3-MoE-235B-A22B, DBRX-132B and RWKV6-7B are ported so far; ``smoke_config`` gives the reduced
 same-family variant the CPU tests run (same rule as ``repro.configs``).
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import ARCHS, ModelConfig, MoECfg, get_config, register
-from repro_torch.configs import mixtral_8x7b, rwkv6_7b  # noqa: F401  (registers)
+from repro_torch.configs import dbrx_132b, mixtral_8x7b, qwen3_moe_235b, rwkv6_7b  # noqa: F401  (registers)
 
 
 def smoke_config(cfg: ModelConfig | str) -> ModelConfig:

@@ -24,7 +24,7 @@ class MoECfg:
     # dispatch fabric by name; on one device every name runs the virtual
     # dense fabric, which still enforces a ScheduleTable row's admission
     dispatch: str = "dense"
-    # wire codec: only the bf16 identity exists in this package so far
+    # wire codec of the dispatched slots: "bf16" (identity), "fp8" or "int8" (parallel/fabric/codec.py)
     wire_dtype: str = "bf16"
     schedule_strategy: Literal["maxweight", "shift"] = "maxweight"
     # accepted so configs build as the JAX package's do; the port's expert

@@ -1,7 +1,21 @@
-"""Host controller (numpy/scipy), the device-side ``ScheduleTable``, and the
-device-resident controller with its batched auction LAP."""
+"""Host controller (numpy/scipy), the device-side ``ScheduleTable``, the
+device-resident controller with its batched auction LAP, and the paper's
+cost models, baselines, simulator and synthetic traces (numpy/scipy)."""
 
+from repro_torch.core.baselines import ideal_a2a_tokens, ring_a2a_tokens
 from repro_torch.core.bvn import bvn_coefficients, bvn_decompose, bvn_decompose_batch
+from repro_torch.core.cost_models import (
+    WIRE_DTYPES,
+    CommModel,
+    ComputeModel,
+    a2a_dispatch_tokens,
+    fit_knee,
+    knee_model,
+    linear_model,
+    phase_dispatch_tokens,
+    pipeline_makespan,
+    wire_bytes_per_token,
+)
 from repro_torch.core.decompose import STRATEGIES, decompose, decompose_batch
 from repro_torch.core.device_controller import (
     DeviceController,
@@ -38,11 +52,15 @@ from repro_torch.core.schedule import (
     ring_schedule,
 )
 from repro_torch.core.selector import DEFAULT_PLAN_KWARGS, Proposal, ScheduleEntry, ScheduleSelector
+from repro_torch.core.simulator import SimResult, simulate_decomposition, simulate_ideal, simulate_sequential
 from repro_torch.core.sinkhorn import is_doubly_stochastic, sinkhorn
+from repro_torch.core.traffic import ROUTERS, WORKLOADS, gen_trace, traffic_matrix
 from repro_torch.core.types import Decomposition, Phase, StackedPhases
 
 __all__ = [
     "A2ASchedule",
+    "CommModel",
+    "ComputeModel",
     "ControllerConfig",
     "DEFAULT_PLAN_KWARGS",
     "DRIFT_KINDS",
@@ -58,13 +76,18 @@ __all__ = [
     "NonFiniteLossError",
     "Phase",
     "Proposal",
+    "ROUTERS",
     "STRATEGIES",
     "ScheduleEntry",
     "ScheduleRuntime",
     "ScheduleSelector",
     "ScheduleTable",
+    "SimResult",
     "StackedPhases",
+    "WIRE_DTYPES",
+    "WORKLOADS",
     "WarmState",
+    "a2a_dispatch_tokens",
     "apply_link_mask",
     "apply_link_mask_traced",
     "auction_lap",
@@ -76,18 +99,31 @@ __all__ = [
     "decompose",
     "decompose_batch",
     "fault_hook",
+    "fit_knee",
+    "gen_trace",
     "greedy_phases",
+    "ideal_a2a_tokens",
     "is_doubly_stochastic",
+    "knee_model",
+    "linear_model",
     "make_serving_controller",
     "matching_weight",
     "maxweight_decompose",
     "maxweight_decompose_batch",
     "order_phases",
+    "phase_dispatch_tokens",
     "phase_envelope",
+    "pipeline_makespan",
     "plan_schedule",
+    "ring_a2a_tokens",
     "ring_schedule",
     "routing_to_traffic",
     "routing_to_traffic_traced",
+    "simulate_decomposition",
+    "simulate_ideal",
+    "simulate_sequential",
     "sinkhorn",
+    "traffic_matrix",
     "warm_state_of",
+    "wire_bytes_per_token",
 ]

@@ -2,7 +2,8 @@
 (kernel K1) -> combine, on the one-device virtual fabric.
 
 Top-k softmax gating with capacity-factor dropping; a ``ScheduleTable``
-row's admission decides which choices reach the expert GEMM.  Every
+row's admission decides which choices reach the expert GEMM, and its
+virtual ranks decide which slots cross the wire codec.  Every
 ``MoECfg.dispatch`` name runs the virtual dense fabric here, as it does
 in the JAX package on one device (``repro/models/moe.py``, ``moe_apply``).
 On a CUDA tensor the expert FFN always runs K1 (and K2/K3 in its
@@ -18,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.schedule import ScheduleTable
 from repro_torch.kernels.moe_gemm import ops as k1
 from repro_torch.models.layers import normal_param
-from repro_torch.parallel.fabric import FABRIC_NAMES, DenseFabric, FabricContext, check_wire_dtype
+from repro_torch.parallel.fabric import FABRIC_NAMES, DenseFabric, FabricContext
 from repro_torch.parallel.fabric import geometry as geom
 
 __all__ = ["MoE", "moe_init", "moe_apply"]
@@ -68,10 +69,12 @@ def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, *, return_stats: b
     t = x_loc.shape[0]
     idx, gates = _router(p, ctx.cfg, x_loc)
     packed = fabric.pack(ctx, x_loc, idx, gates)
-    check_wire_dtype(m.wire_dtype)  # bf16: the identity on both legs
+    # wire codec: QDQ the wire-crossing slots on both legs (the bf16 identity leaves them as they are)
+    packed = fabric.wire_encode(ctx, packed)
     blocks, state = fabric.dispatch(ctx, packed)
     ys = [_expert_ffn(p, blk, live) for blk, live in blocks]
     y_slots = fabric.combine(ctx, packed, state, ys)
+    y_slots = fabric.wire_decode(ctx, packed, y_slots)
     y_loc = geom.ungroup(y_slots, packed.pos, packed.gate, t)  # [t, d] f32
     if not return_stats:
         return y_loc

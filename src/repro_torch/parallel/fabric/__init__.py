@@ -8,10 +8,10 @@ from repro_torch.parallel.fabric.base import (
     SCHEDULE_KINDS,
     FabricContext,
     PackedTokens,
-    check_wire_dtype,
     consumes_schedule,
     consumes_table,
 )
+from repro_torch.parallel.fabric.codec import CODECS, WireCodec, codec_names, get_codec
 from repro_torch.parallel.fabric.dense import DenseFabric
 
 # dispatch names the JAX package registers; on one device all of them
@@ -21,6 +21,6 @@ FABRIC_NAMES = ("a2a", "dense", "faulty", "hierarchical", "phase_pipelined", "pp
 TABLE_FABRICS = (*(n for n, kind in SCHEDULE_KINDS.items() if kind == "row"), "scheduled")
 
 __all__ = [
-    "DenseFabric", "FABRIC_NAMES", "SCHEDULE_KINDS", "TABLE_FABRICS", "FabricContext", "PackedTokens",
-    "check_wire_dtype", "consumes_schedule", "consumes_table",
+    "CODECS", "DenseFabric", "FABRIC_NAMES", "SCHEDULE_KINDS", "TABLE_FABRICS", "FabricContext",
+    "PackedTokens", "WireCodec", "codec_names", "consumes_schedule", "consumes_table", "get_codec",
 ]

@@ -1,9 +1,10 @@
-"""The fabric seam: per-call context, packed slots, and the wire codec.
+"""The fabric seam: per-call context and packed slots.
 
-The MoE layer is one pipeline (route -> admit -> pack -> dispatch ->
-grouped expert GEMM -> combine); a fabric owns the buffer geometry and
-the movement.  On one device the only movement is the virtual dense
-fabric's (``dense.py``).  Counterpart of ``repro/parallel/fabric/base.py``.
+The MoE layer is one pipeline (route -> admit -> pack -> wire encode ->
+dispatch -> grouped expert GEMM -> combine -> wire decode); a fabric owns
+the buffer geometry, the movement and the wire codec's domain.  On one
+device the only fabric is the virtual dense one (``dense.py``).
+Counterpart of ``repro/parallel/fabric/base.py``.
 """
 
 from __future__ import annotations
@@ -13,9 +14,7 @@ from typing import Any
 
 import torch
 
-__all__ = [
-    "SCHEDULE_KINDS", "FabricContext", "PackedTokens", "check_wire_dtype", "consumes_schedule", "consumes_table",
-]
+__all__ = ["SCHEDULE_KINDS", "FabricContext", "PackedTokens", "consumes_schedule", "consumes_table"]
 
 # what ``schedule=`` each JAX backend consumes (its ``schedule_kind``):
 # nothing, an optional table row (the virtual fabric), a static plan baked
@@ -67,21 +66,14 @@ class FabricContext:
 @dataclasses.dataclass
 class PackedTokens:
     """A fabric's packed slot space: ``buf`` [.., d] with slot-aligned
-    ``pos``/``gate``/``live``; ``admitted`` is the [T*k] admission mask."""
+    ``pos``/``gate``/``live``; ``admitted`` is the [T*k] admission mask.
+    ``wire`` is the slot-shaped bool mask of the slots that cross the
+    fabric (live remote slots), the wire codec's domain; None: nothing
+    crosses (the schedule-less path)."""
 
     buf: torch.Tensor
     pos: torch.Tensor
     gate: torch.Tensor
     live: torch.Tensor
     admitted: torch.Tensor
-
-
-def check_wire_dtype(name: str) -> None:
-    """The bf16 wire codec is the identity (slots cross the fabric
-    unchanged), so the pipeline has nothing to do for it.  The quantized
-    codecs come with the multi-rank fabrics."""
-    if name != "bf16":
-        raise NotImplementedError(
-            f"wire_dtype {name!r}: the fp8/int8 wire codecs are ported with the "
-            "multi-rank fabrics (ROADMAP M10); this package runs bf16 only"
-        )
+    wire: torch.Tensor | None = None

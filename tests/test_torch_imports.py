@@ -52,6 +52,9 @@ def test_every_module_is_found():
         "repro_torch.core.lap", "repro_torch.core.device_controller", "repro_torch.serve.queue",
         "repro_torch.serve.batcher", "repro_torch.serve.metrics", "repro_torch.serve.engine",
         "repro_torch.checkpoint.manager", "repro_torch.optim.compression", "repro_torch.train.loop",
+        "repro_torch.core.cost_models", "repro_torch.core.baselines", "repro_torch.core.simulator",
+        "repro_torch.parallel.fabric.codec", "repro_torch.launch.simulate", "repro_torch.configs.qwen3_moe_235b",
+        "repro_torch.configs.dbrx_132b",
     ):
         assert expected in names
 
@@ -97,3 +100,16 @@ def test_serve_engine_raises_without_card_unless_cpu(monkeypatch):
         ServeEngine(cfg, decode_slots=2, max_len=16, buckets=(4,), device="cuda")
     eng = ServeEngine(cfg, decode_slots=2, max_len=16, buckets=(4,), device="cpu")
     assert eng.device == torch.device("cpu") and eng.model.device == torch.device("cpu")
+
+
+def test_simulate_entry_point_raises_without_card_unless_cpu(monkeypatch):
+    from repro_torch.core.traffic import RouterConfig
+    from repro_torch.launch import simulate
+
+    _no_card(monkeypatch)
+    tiny = RouterConfig("tiny", n_experts=8, top_k=2, d_model=64, d_ff=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate.profile_knee(tiny, (1, 4, 16, 64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate.main(["--routers", "mixtral-8x7b", "--smoke"])
+    assert simulate.profile_knee(tiny, (1, 4, 16, 64), device="cpu", reps=1).device == "cpu"

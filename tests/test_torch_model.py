@@ -1,5 +1,7 @@
 """Whole-slice parity: prefill + greedy decode with a schedule table on the
-smoke Mixtral, JAX weights transplanted into the port.
+smoke Mixtral, Qwen3-MoE and DBRX, JAX weights transplanted into the port;
+one MoE layer at Qwen3's 128 experts top-8; Qwen3's explicit head_dim
+through prefill and decode attention.
 
 The JAX side runs as its own tests run it on the CPU: ``use_pallas=True``
 (grouped MoE kernel) and ``USE_PALLAS_FLASH=True`` (flash kernel), both
@@ -39,10 +41,10 @@ from repro_torch.models.transplant import load_reference
 B, S, NEW = 2, 16, 4
 
 
-def _cfgs():
-    jcfg = jax_smoke("mixtral-8x7b")
+def _cfgs(arch: str = "mixtral-8x7b"):
+    jcfg = jax_smoke(arch)
     jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, dispatch="phase_pipelined", use_pallas=True))
-    pcfg = smoke_config("mixtral-8x7b")
+    pcfg = smoke_config(arch)
     pcfg = dataclasses.replace(pcfg, moe=dataclasses.replace(pcfg.moe, dispatch="phase_pipelined"))
     return jcfg, pcfg
 
@@ -129,3 +131,113 @@ def test_transplant_dtypes():
         model.layers[1].ffn.w_gate.float().numpy(),
         torch.from_numpy(params["stack"]["pos0"]["ffn"]["w_gate"][1]).to(torch.bfloat16).float().numpy(),
     )
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "dbrx-132b"])
+@pytest.mark.parametrize("dtype,tol,seed", [(torch.float32, 1e-4, 1), (torch.bfloat16, 1e-1, 2)])
+def test_moe_configs_prefill_decode_match_jax(monkeypatch, arch, dtype, tol, seed):
+    """Qwen3-MoE-235B-A22B and DBRX-132B at smoke width (8 experts top-2,
+    as ``smoke_config`` caps them), transplanted, under the serving table:
+    the tolerances of the Mixtral test above; greedy tokens equal."""
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    monkeypatch.setattr(jax_layers, "COMPUTE_DTYPE", jdtype)
+    monkeypatch.setattr(jax_attention, "USE_PALLAS_FLASH", True)
+    jcfg, pcfg = _cfgs(arch)
+    params = JaxModel(jcfg).init(jax.random.PRNGKey(0))
+    model = load_reference(pcfg, jax.tree.map(np.array, params), device="cpu", dtype=dtype)
+    prompts = np.random.default_rng(seed).integers(0, pcfg.vocab_size, size=(B, S)).astype(np.int32)
+    stats0 = uniform_estimate(pcfg, float(B * S * pcfg.moe.top_k))
+    runtime, _ = make_serving_controller(jcfg, n_ranks=8, drift="none")
+    runtime.observe(stats0)
+    pruntime, _ = port_serving_controller(pcfg, n_ranks=8, drift="none", device="cpu")
+    pruntime.observe(stats0)
+    jl, jt = _run_jax(jcfg, params, prompts, runtime.table(), jdtype)
+    pl, pt = _run_port(model, prompts, pruntime.table(), dtype)
+    for step, (a, b) in enumerate(zip(pl, jl)):
+        np.testing.assert_allclose(a, np.asarray(b, np.float32), rtol=tol, atol=tol, err_msg=f"{arch} step {step}")
+    np.testing.assert_array_equal(pt, jt)
+
+
+def test_qwen3_width_moe_layer_matches_jax(monkeypatch):
+    """One MoE layer at Qwen3's 128 experts top-8 (``smoke_config`` caps
+    experts at 8 and top-k at 2) at d 64, F 32, under a planned row at 16
+    experts a virtual rank: f32 output within 1e-5 (the expert GEMMs sum
+    in another order) and the stats equal."""
+    from repro.configs import get_config as jax_get_config
+    from repro.core import ScheduleTable as JaxTable
+    from repro.core import decompose as jax_decompose
+    from repro.core import plan_schedule as jax_plan
+    from repro.models.moe import moe_apply as jax_moe_apply
+    from repro.models.moe import moe_init as jax_moe_init
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ScheduleTable, decompose, plan_schedule
+    from repro_torch.models.moe import moe_apply, moe_init
+
+    monkeypatch.setattr(jax_layers, "COMPUTE_DTYPE", jnp.float32)
+    arch = "qwen3-moe-235b-a22b"
+
+    def narrow(cfg):
+        return dataclasses.replace(cfg, d_model=64, moe=dataclasses.replace(
+            cfg.moe, d_ff_expert=32, dispatch="phase_pipelined", use_pallas=True))
+
+    jcfg, pcfg = narrow(jax_get_config(arch)), narrow(get_config(arch))
+    assert (pcfg.moe.n_experts, pcfg.moe.top_k) == (128, 8)
+    params = jax.tree.map(np.array, jax_moe_init(jax.random.PRNGKey(3), jcfg))
+    p = moe_init(pcfg, gen=None, device="cpu", dtype=torch.float32)
+    p.router.data.copy_(torch.from_numpy(params["router"]["w"]))
+    for name in ("w_gate", "w_up", "w_down"):
+        getattr(p, name).data.copy_(torch.from_numpy(params[name]))
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 64, 64)).astype(np.float32)
+    m = rng.integers(20, 200, size=(8, 8)).astype(np.float64) * (rng.random((8, 8)) < 0.8)
+    prow = ScheduleTable.from_schedules([plan_schedule(decompose(m, "maxweight"))], envelope="auto").row(0)
+    jrow = JaxTable.from_schedules([jax_plan(jax_decompose(m, "maxweight"))], envelope="auto").row(0)
+    for ps, js in ((None, None), (prow, jrow)):
+        y, st = moe_apply(p, pcfg, torch.from_numpy(x), schedule=ps, return_stats=True)
+        jy, jst = jax_moe_apply(params, jcfg, jnp.asarray(x), schedule=js, return_stats=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+        for key in ("routing", "dropped"):
+            np.testing.assert_array_equal(st[key].numpy(), np.asarray(jst[key]), err_msg=key)
+        assert st["routing"].shape == (1, 128) and float(st["routing"].sum()) == 2 * 64 * 8
+    assert float(st["admitted"]) < 2 * 64 * 8, "the row's dark pairs must clip some choices"
+
+
+def test_qwen3_head_dim_attention_matches_jax(monkeypatch):
+    """Qwen3's explicit head_dim makes the q width twice d (here d 64, 8
+    heads of 16 over 2 KV heads, GQA group 4): prefill (flash) and two
+    decode steps against ``repro.models.attention`` in f32, within 1e-5."""
+    from repro.configs import get_config as jax_get_config
+    from repro.models.attention import attn_decode as jax_decode
+    from repro.models.attention import attn_init as jax_attn_init
+    from repro.models.attention import attn_prefill as jax_prefill
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attn_decode, attn_init, attn_prefill, init_cache
+
+    monkeypatch.setattr(jax_layers, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(jax_attention, "USE_PALLAS_FLASH", True)
+    arch = "qwen3-moe-235b-a22b"
+
+    def narrow(cfg):
+        return dataclasses.replace(cfg, d_model=64, n_heads=8, n_kv_heads=2, head_dim=16)
+
+    jcfg, pcfg = narrow(jax_get_config(arch)), narrow(get_config(arch))
+    assert pcfg.n_heads * pcfg.resolved_head_dim == 2 * pcfg.d_model
+    params = jax.tree.map(np.array, jax_attn_init(jax.random.PRNGKey(5), jcfg))
+    p = attn_init(pcfg, gen=None, device="cpu", dtype=torch.float32)
+    for name in ("q", "k", "v", "o"):
+        getattr(p, name).data.copy_(torch.from_numpy(params[name]["w"]))
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 12, 64)).astype(np.float32)
+    steps = rng.standard_normal((2, 2, 1, 64)).astype(np.float32)
+    cache = init_cache(pcfg, 2, 14, dtype=torch.float32, device="cpu")
+    jcache = {"k": jnp.zeros((2, 14, 2, 16)), "v": jnp.zeros((2, 14, 2, 16)), "pos": jnp.full((2, 14), -1, jnp.int32)}
+    y, cache = attn_prefill(p, pcfg, torch.from_numpy(x), cache)
+    jy, jcache = jax_prefill(params, jcfg, jnp.asarray(x), jcache)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+    for i, xs in enumerate(steps):
+        y, cache = attn_decode(p, pcfg, torch.from_numpy(xs), cache, 12 + i)
+        jy, jcache = jax_decode(params, jcfg, jnp.asarray(xs), jcache, jnp.int32(12 + i))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5, err_msg=f"decode {i}")
+    np.testing.assert_allclose(cache["k"].numpy(), np.asarray(jcache["k"]), rtol=1e-5, atol=1e-5)
