@@ -32,7 +32,9 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    4096 x 1536), b = 1 ... 16384, each fitted with ``fit_knee``; it fails
    on a time that is not finite and positive, on a fit whose slope is
    not positive, and unless K1 holds against its plain version at each
-   router's b = 4096 point; then Mixtral's Fig. 3 (``mmlu``) and Fig. 4
+   router's b = 4096 point; beside K1, ``torch.bmm`` SwiGLU over the same
+   live rows (ceil(b / E) an expert) at b = 1, 4, 16, 64 and 4096, timed
+   the same way (the library call); then Mixtral's Fig. 3 (``mmlu``) and Fig. 4
    (``speed``) tables under the fitted device-time model and under the
    paper's ``knee_model()``, with fig3's two ratios;
 6. serve full-width Mixtral-8x7B cut to 4 layers (random weights from a
@@ -151,11 +153,35 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    in the same run, one more
    prefill and 8 decode steps under ``torch.profiler`` (device time by
    kernel group), and the prefill logits of the kernel path held against
-   the plain path on the same seeded model in f32.
+   the plain path on the same seeded model in f32;
+9b. (run after 9) K5b (the recurrence's backward, ``csrc/rwkv_wkv_bwd.cu``)
+   against its plain version at the training shape r/k/v [4, 64, 1024, 64]:
+   bf16 in the model's strided views from S = 0, f32 from a carried s0
+   with a nonzero dS_final, and decays near 0 and near 1; each gradient
+   within 1e-3 relative L2 and 1e-3 x max |plain| (printed), with K5b's
+   time beside its bound (14 D^2 f32 FLOP per step and head), the plain
+   version's and K5's forward on the same inputs;
+10b. the ``long_500k`` cell (``launch/shapes.py``) on the same 32-layer
+   model: ``cell_applicable`` for every ported config (True for rwkv6-7b
+   alone), the cache of ``init_cache(1, 524288)`` in the bytes of
+   ``init_cache(1, 1024)``, then a 1024-token prompt at batch 1 and 16
+   one-token decode steps at step 524287 + i in ``input_specs``' shapes,
+   with ms a step and exact K5 launches (the cell is never prefilled at
+   524288 tokens);
+11. train full-width RWKV6-7B: a train step at 1 layer, kernel path (K5,
+   K5b) against the plain path (loss within 2e-2 relative, each gradient
+   leaf within 2e-2 relative L2, K5 twice and K5b once); then 4 of 32
+   layers (1.42 B parameters, f32 masters, bf16 compute, remat per
+   block, AdamW) through ``launch/train.py``'s ``train`` at batch 4 x 1024
+   for 8 steps, counts reset just before and read just after (K5 2 x
+   layers x steps, K5b layers x steps, every other kernel 0); the losses
+   must be finite and the mean of the last two below step 0's, peak memory
+   under 80 GB; one more step traced by kernel group.
 
 It prints K4's extra numbers and K2's/K3's per-launch times (with the
 dgrad launch's library time and bound) one a line beside the card's name
-and power limit, a ``kernels`` JSON line, then,
+and power limit, a ``kernels`` JSON line (seven entries, K5b's
+``replaces`` naming the scan XLA differentiates), then,
 last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before that line.
 """
@@ -223,6 +249,14 @@ PEAK_LR, WARMUP = 3e-4, 2
 RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_ROUNDS, RWKV_CHECK_PROMPT = 4, 1024, 32, 2, 256
 # K5 vs plain: both f32 throughout (bf16 r/k/v widened first); only the order of the 64-term sums differs
 WKV_TOL = 1e-4
+# K5b vs plain, each gradient in f32 on both sides: relative L2 and max |diff| / max |plain| (sums over T and over
+# 64 terms in another order)
+WKV_BWD_TOL = 1e-3
+# the long_500k cell (phase 10b) on the phase-10 model: a 1024-token prompt at batch 1, then 16 decode steps
+LONG_PROMPT, LONG_STEPS = 1024, 16
+# RWKV6-7B training (phase 11): full width cut to 4 of 32 layers, batch 4 x 1024 (K5 and K5b at the serving
+# prefill's shape), f32 masters, bf16 compute, remat per block, AdamW, 8 steps
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = 4, 4, 1024, 8
 # serving through the engine (phase 6c): the knobs of the JAX drift run (tests/test_serve.py, _drift_run) at
 # full width; per phase 24 requests, prompts of 17-257 tokens (all three buckets), 8-24 new tokens, one arrival
 # a decode step on average; prompts from two token pools of the seeded router
@@ -259,6 +293,7 @@ WIRE_REL_TOL = {"fp8": 0.1, "int8": 0.03}
 # the knee (phase 5b): the routers whose virtual rank K1 is profiled at full width (8 ranks: 1 expert of
 # 4096 x 14336, 2 of 6144 x 10752, 16 of 4096 x 1536), the batch at which K1 is held against its plain version
 KNEE_ROUTERS, KNEE_CHECK_B = ("mixtral-8x7b", "dbrx", "qwen3-moe"), 4096
+KNEE_LIBRARY_B = (1, 4, 16, 64, 4096)  # the batches at which torch.bmm SwiGLU is timed beside K1
 
 # the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
 ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
@@ -336,6 +371,9 @@ def main() -> None:
     from repro_torch.core.schedule import TABLE_LEAVES
     from repro_torch.launch import simulate
     from repro_torch.launch.serve import controller_line, demand_estimate, serve
+    from repro_torch.configs import ARCHS as ARCH_REGISTRY
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch import shapes
     from repro_torch.launch.train import plan_table, train
     from repro_torch.models import Model
     from repro_torch.models import moe as moe_layer
@@ -475,7 +513,7 @@ def main() -> None:
     COUNTED = {
         "moe_gemm_grouped": k1.moe_gemm, "flash_attention_fwd": k4.flash_attention,
         "moe_gemm_grouped_dgrad": k1.moe_gemm_dgrad, "moe_gemm_grouped_wgrad": k1.moe_gemm_wgrad,
-        "moe_gemm_ungrouped": k1.moe_gemm_ungrouped, "wkv6": k5.wkv6,
+        "moe_gemm_ungrouped": k1.moe_gemm_ungrouped, "wkv6": k5.wkv6, "wkv6_bwd": k5.wkv6_bwd,
     }
 
     def reset_counts():
@@ -1037,12 +1075,32 @@ def main() -> None:
         err = close(out, k1.moe_gemm_plain(x, *w0, rv), f"K1 knee {name} b={KNEE_CHECK_B}")
         print(f"K1 knee {name} b={KNEE_CHECK_B}: x{list(x.shape)} w[{prof.experts},{x.shape[2]},{w0[0].shape[2]}] "
               f"max_abs_err {err:.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|)")
+        del w0, x, rv, out
+        # the library call beside K1: torch.bmm SwiGLU over the live experts only (the first min(b, E): rows go
+        # round robin, and their weights are a prefix view) at ceil(b / E) rows an expert, timed as K1 is (a CUDA
+        # graph replay of back-to-back calls rotating over the weight copies)
+        copies = simulate.rank_weights(name, device=dev, copies=simulate.COPIES)
+        library_us = {}
+        for b in KNEE_LIBRARY_B:
+            live = min(b, prof.experts)
+            x = simulate.rank_batch(name, b, device=dev)[0][:live, :-(-b // prof.experts)].contiguous()
+
+            def lib_call(i, x=x, live=live):
+                wg, wu, wd = (w[:live] for w in copies[i % len(copies)])
+                return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+
+            for i in range(simulate.WARMUP):
+                lib_call(i)
+            library_us[b] = simulate._device_us(lib_call, dev, simulate.REPS)
+            print(f"K1 knee {name} b={b}: torch.bmm SwiGLU over x{list(x.shape)} {library_us[b]:.2f} us (graph) "
+                  f"beside K1 {prof.device_us[prof.batches.index(b)]:.2f} us ({card})")
         knee[name] = {
             "experts": prof.experts, "batches": prof.batches, "device_us": prof.device_us, "call_us": prof.call_us,
             "device_fit": [prof.device_fit.floor_us, prof.device_fit.per_token_us],
             "call_fit": [prof.call_fit.floor_us, prof.call_fit.per_token_us], "max_abs_err": err,
+            "library_device_us": library_us,
         }
-        del w0, x, rv, out
+        del copies, x
         torch.cuda.empty_cache()
     knee_launches = read_counts()
     prof = knee["mixtral-8x7b"]
@@ -1739,8 +1797,6 @@ def main() -> None:
 
     # 7. one train step at 1 layer, full width: kernel path vs plain path
     tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="phase_pipelined", use_pallas=True))
-    from repro_torch.data import DataConfig, SyntheticStream
-
     stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
     batch = {key: torch.from_numpy(val).to(dev) for key, val in stream.batch(0).items()}
     one = Model(dataclasses.replace(tcfg, n_layers=1), device=dev, param_dtype=torch.float32, requires_grad=True, seed=1)
@@ -1952,6 +2008,74 @@ def main() -> None:
               f"library: none | bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     del r, k, v, w, y, y_ref, s_fin, s_ref, s_carried, u5
 
+    # 9b. K5b (the recurrence's backward) against its plain version at the training shape r/k/v
+    # [4, 64, 1024, 64]: bf16 in the model's strided [B, T, H, D] views from S = 0; f32 from a carried s0
+    # with a nonzero dS_final; decays near 0 and near 1.  Comparison launches (_launch_bwd) are not counted.
+    def bwd_case(dtype, strided: bool, carried: bool, decay: str | None = None):
+        shape = (b5, RWKV_PROMPT, h5, hd5) if strided else (b5, h5, RWKV_PROMPT, hd5)
+        view = (lambda x: x.transpose(1, 2)) if strided else (lambda x: x)
+        r, k, v = (view(torch.randn(shape, generator=wgen, device=dev) * 0.5).to(dtype) for _ in range(3))
+        noise = torch.randn(shape, generator=wgen, device=dev)
+        if decay is None:
+            w = torch.exp(-torch.exp(-2.0 + 0.5 * noise))  # the model's range
+        else:
+            eps = torch.rand(shape, generator=wgen, device=dev) * 1e-3 + 1e-15
+            w = eps if decay == "near 0" else 1.0 - eps
+        dy = view(torch.randn(shape, generator=wgen, device=dev))
+        s0 = ds = None
+        if carried:
+            s0, ds = (torch.randn((b5, h5, hd5, hd5), generator=wgen, device=dev) * 0.3 for _ in range(2))
+        return r, k, v, view(w), torch.randn((h5, hd5), generator=wgen, device=dev) * 0.1, dy, s0, ds
+
+    def bwd_close(got, want, what: str) -> float:
+        """Each gradient's relative L2 and max |diff| / max |plain| within WKV_BWD_TOL; returns the max |diff|."""
+        worst, parts = 0.0, []
+        for name, g, p_ in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+            if p_ is None:
+                continue
+            if not torch.isfinite(g).all():
+                fail(f"{what} {name}: non-finite")
+            rel, err, top = rel_l2(g, p_), float((g - p_).abs().max()), float(p_.abs().max())
+            if rel > WKV_BWD_TOL or err > WKV_BWD_TOL * top:
+                fail(f"{what} {name}: rel L2 {rel:.3g}, max |diff| {err:.4g} against max |plain| {top:.4g} "
+                     f"(tol {WKV_BWD_TOL} each)")
+            worst = max(worst, err)
+            parts.append(f"{name} {rel:.3g} / {err / top:.3g}")
+        print(f"K5b {what}: rel L2 / max |diff| over max |plain| (tol {WKV_BWD_TOL} each): {', '.join(parts)}")
+        return worst
+
+    k5b_err = 0.0
+    for label, case in (
+        ("bf16, model's strided views, S from 0", dict(dtype=torch.bfloat16, strided=True, carried=False)),
+        ("f32, carried s0 and dS_final", dict(dtype=torch.float32, strided=False, carried=True)),
+        ("bf16, decays near 0, carried", dict(dtype=torch.bfloat16, strided=True, carried=True, decay="near 0")),
+        ("bf16, decays near 1, carried", dict(dtype=torch.bfloat16, strided=True, carried=True, decay="near 1")),
+    ):
+        args = bwd_case(**case)
+        got = k5._launch_bwd(*args)
+        torch.cuda.synchronize()
+        k5b_err = max(k5b_err, bwd_close(got, k5.wkv6_bwd_plain(*args), label))
+        del got
+    args = bwd_case(torch.bfloat16, True, False)  # the training path's case, timed
+    r, k, v, w, u5, dy, _, _ = args
+    n = b5 * h5 * RWKV_PROMPT * hd5
+    # 14 D^2 f32 FLOP per (b, h, t): the S and G recurrences (w * x + a * b: a MUL and an FMA, 3 each) and four
+    # 64-term sums (dr, dk, dv, dw: 2 each); bytes: bf16 r/k/v, f32 w and dy read, four f32 gradients written
+    b_ms, b_by = bound(14.0 * hd5 * n, n * (3 * 2 + 4 + 4) + 4 * n * 4 + 2 * h5 * hd5 * 4, PEAK_F32_FLOPS)
+    k5b_row = {
+        "shape": f"r/k/v[{b5},{h5},{RWKV_PROMPT},{hd5}] bf16 as [B, T, H, D] views, w and dy f32, S from 0",
+        "max_abs_err": k5b_err,
+        "ms": cuda_ms(lambda: k5._launch_bwd(*args), 10),
+        "plain_ms": cuda_ms(lambda: k5.wkv6_bwd_plain(*args), 1, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "forward_ms": cuda_ms(lambda: k5._launch(r, k, v, w, u5, None), 10),
+    }
+    print(f"K5b backward: {k5b_row['shape']} | kernel {k5b_row['ms']:.4f} ms | plain {k5b_row['plain_ms']:.2f} ms | "
+          f"library: none | bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k5b_row['ms']:.1f}% of bound | K5 forward "
+          f"on the same inputs {k5b_row['forward_ms']:.4f} ms ({card})")
+    del args, r, k, v, w, u5, dy
+    torch.cuda.empty_cache()
+
     # 10. serve full-width RWKV6-7B at all 32 layers: the third slice's main path
     before_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
@@ -2062,7 +2186,57 @@ def main() -> None:
     if k5_us:
         print(f"K5 decode device time in the trace: {sum(k5_us) / len(k5_us) / 1e3:.4f} ms per launch "
               f"({len(k5_us)} launches; bound {k5_rows['decode']['bound_ms']:.4f} ms)")
-    del rmodel, caches, logits
+    del caches, logits
+
+    # 10b. the long_500k cell on the same 32-layer model: the cell applies to the subquadratic configs only,
+    # the O(1) state of a 524288-token cache has the bytes of a 1024-token one, and after a 1024-token prompt
+    # at batch 1 the cell's decode steps (one token at step 524287 + i, input_specs' shapes) run through K5
+    long_cell = shapes.CELLS["long_500k"]
+    applies = {arch: shapes.cell_applicable(get_config(arch), long_cell)[0] for arch in sorted(ARCH_REGISTRY)}
+    print(f"long_500k applies: {applies}")
+    if applies != {arch: get_config(arch).subquadratic for arch in applies} or not applies["rwkv6-7b"]:
+        fail(f"long_500k cell_applicable {applies}: expected True for rwkv6-7b alone")
+    specs = shapes.input_specs(rcfg, long_cell)
+
+    def cache_bytes(caches) -> int:
+        return sum(t.numel() * t.element_size() for c in caches for t in c.values())
+
+    long_caches = rmodel.init_cache(long_cell.global_batch, long_cell.seq_len)
+    long_mb, short_mb = cache_bytes(long_caches) / 1e6, cache_bytes(rmodel.init_cache(1, LONG_PROMPT)) / 1e6
+    print(f"long_500k: init_cache(1, {long_cell.seq_len}) {long_mb:.3f} MB, init_cache(1, {LONG_PROMPT}) "
+          f"{short_mb:.3f} MB; input_specs {{{', '.join(f'{k}: {tuple(t.shape)} {t.dtype}' for k, t in specs.items())}}}")
+    if long_mb != short_mb:
+        fail(f"long_500k: the RWKV cache grows with the context ({long_mb} MB against {short_mb} MB)")
+    long_prompt = torch.randint(0, rcfg.vocab_size, (long_cell.global_batch, LONG_PROMPT), generator=wgen, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, long_caches = rmodel.prefill(long_prompt, long_caches)
+    torch.cuda.synchronize()
+    long_prefill_ms = (time.perf_counter() - t0) * 1e3
+    token = torch.argmax(logits, dim=-1).to(specs["token"].dtype)
+    step_ms, long_tokens = [], []
+    for i in range(LONG_STEPS):
+        if token.shape != specs["token"].shape:
+            fail(f"long_500k: token {tuple(token.shape)} against the cell's {tuple(specs['token'].shape)}")
+        t0 = time.perf_counter()
+        logits, long_caches = rmodel.decode_step(token, long_caches, long_cell.seq_len - 1 + i)
+        token = torch.argmax(logits, dim=-1).to(specs["token"].dtype)
+        long_tokens.append(int(token[0]))  # reads the step back: it has finished
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    long_launches = read_counts()
+    expect = dict.fromkeys(COUNTED, 0)
+    expect["wkv6"] = rcfg.n_layers * (1 + LONG_STEPS)
+    print(f"long_500k: prefill {long_prefill_ms:.1f} ms ({LONG_PROMPT} tokens, batch 1) | decode at steps "
+          f"{long_cell.seq_len - 1}..{long_cell.seq_len - 2 + LONG_STEPS}: {sum(step_ms) / len(step_ms):.2f} ms/step "
+          f"(median {sorted(step_ms)[len(step_ms) // 2]:.2f}) | tokens {long_tokens} | launches {long_launches} "
+          f"(expected {expect}) ({card})")
+    if long_launches != expect:
+        fail(f"long_500k path launches {long_launches}, expected {expect}")
+    if not torch.isfinite(logits).all() or not all(0 <= t_ < rcfg.vocab_size for t_ in long_tokens):
+        fail("long_500k: non-finite logits or tokens out of range")
+    long_row = {"cache_mb": long_mb, "prefill_ms": long_prefill_ms, "decode_ms_per_step": sum(step_ms) / len(step_ms)}
+    del rmodel, long_caches, logits, token
     torch.cuda.empty_cache()
 
     # the same seeded 32-layer model in f32 (30 GB): kernel path vs plain path
@@ -2080,12 +2254,85 @@ def main() -> None:
     del fmodel, kernel_logits, plain_logits
     torch.cuda.empty_cache()
 
-    # 11. the kernels line, then the result line
+    # 11. train full-width RWKV6-7B: first a train step at 1 layer, kernel path (K5, K5b) against the plain
+    # path (wkv6_plain, wkv6_bwd_plain), then 4 layers through launch/train.py's train for RWKV_TRAIN_STEPS
+    # steps (the slice's main path), then one more step traced
+    rstream = SyntheticStream(DataConfig(vocab_size=rcfg.vocab_size, seq_len=RWKV_TRAIN_SEQ, global_batch=RWKV_TRAIN_BATCH))
+    rbatch = {key: torch.from_numpy(val).to(dev) for key, val in rstream.batch(0).items()}
+    # rcfg.remat is "block": the backward recomputes each layer's forward, K5 included
+    one = Model(dataclasses.replace(rcfg, n_layers=1), device=dev, param_dtype=torch.float32, requires_grad=True,
+                seed=1)
+
+    def rwkv_loss_and_grads():
+        for prm in one.parameters():
+            prm.grad = None
+        loss = one.loss(rbatch)
+        loss.backward()
+        return loss.item(), {n: prm.grad.detach().clone() for n, prm in one.named_parameters()}
+
+    reset_counts()
+    k_loss, k_grads = rwkv_loss_and_grads()
+    step_counts = read_counts()
+    with mock.patch.object(k5, "_forward", k5.wkv6_plain), mock.patch.object(k5, "_backward", k5.wkv6_bwd_plain):
+        p_loss, p_grads = rwkv_loss_and_grads()
+    rel = {n: rel_l2(k_grads[n], p_grads[n]) for n in p_grads}
+    worst = max(rel, key=rel.get)
+    expect = dict.fromkeys(COUNTED, 0)
+    expect.update(wkv6=2, wkv6_bwd=1)
+    print(f"rwkv train step, 1 layer, kernel vs plain path: loss {k_loss:.6f} vs {p_loss:.6f}, max leaf rel L2 "
+          f"{rel[worst]:.3g} ({worst}; tol {GRAD_REL_TOL}), kernel-path launches {step_counts}")
+    if not (math.isfinite(k_loss) and abs(k_loss - p_loss) <= GRAD_REL_TOL * abs(p_loss)) or not rel[worst] <= GRAD_REL_TOL:
+        fail(f"RWKV 1-layer train step: kernel path differs from the plain path (loss {k_loss} vs {p_loss}, "
+             f"grad rel L2 {rel[worst]} at {worst})")
+    if step_counts != expect:
+        fail(f"RWKV 1-layer train step launches {step_counts}, expected {expect}: K5 twice (remat) and K5b once")
+    del one, k_grads, p_grads, rbatch
+    torch.cuda.empty_cache()
+
+    rtcfg = dataclasses.replace(rcfg, n_layers=RWKV_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(rtcfg, device=dev, param_dtype=torch.float32, requires_grad=True, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(prm.numel() for prm in model.parameters())
+    print(f"rwkv train model: {rtcfg.name} {RWKV_TRAIN_LAYERS} of {rcfg.n_layers} layers, {n_params / 1e9:.3f} B params "
+          f"(f32 masters), remat {rtcfg.remat}, init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rtres = train(model, steps=RWKV_TRAIN_STEPS, batch=RWKV_TRAIN_BATCH, seq=RWKV_TRAIN_SEQ, peak_lr=PEAK_LR,
+                  warmup=WARMUP)
+    rwkv_train_launches = read_counts()
+    rtpeak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, (ls, gn, ms, tps) in enumerate(zip(rtres.losses, rtres.grad_norms, rtres.step_ms, rtres.tokens_per_s())):
+        print(f"rwkv train step {i}: loss {ls:.4f} | grad norm {gn:.4f} | {ms:.1f} ms | {tps:.0f} tok/s")
+    print(f"rwkv train peak memory allocated: {rtpeak_gb:.2f} GB (limit {LOOP_PEAK_GB} GB) ({card})")
+    expect = dict.fromkeys(COUNTED, 0)
+    expect.update(wkv6=2 * RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS, wkv6_bwd=RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS)
+    print(f"rwkv train launches: {rwkv_train_launches} (expected {expect})")
+    if rwkv_train_launches != expect:
+        fail(f"RWKV training path launches {rwkv_train_launches}, expected {expect}")
+    if rtres.table is not None or not all(math.isfinite(v) for v in rtres.losses):
+        fail(f"RWKV training planned a table or a loss is non-finite: {rtres.losses}")
+    if not (rtres.losses[-1] + rtres.losses[-2]) / 2 < rtres.losses[0]:
+        fail(f"RWKV training loss did not fall: {rtres.losses}")
+    if not rtpeak_gb < LOOP_PEAK_GB:
+        fail(f"RWKV training peak memory {rtpeak_gb:.2f} GB, limit {LOOP_PEAK_GB} GB")
+    with torch.profiler.profile(activities=activities) as prof:
+        traced = train(model, steps=1, batch=RWKV_TRAIN_BATCH, seq=RWKV_TRAIN_SEQ, peak_lr=PEAK_LR, warmup=WARMUP)
+    trace_report(prof, traced.step_ms[0], f"rwkv train step trace ({card})", {
+        "K5 wkv6": {"wkv6_kernel"}, "K5b wkv6_bwd": {"wkv6_bwd_kernel"}, "cuBLAS GEMM": cublas,
+        "elementwise and reductions": elementwise,
+    })
+    rwkv_train_row = {"step_ms": rtres.step_ms, "losses": rtres.losses, "peak_gb": rtpeak_gb}
+    del model
+    torch.cuda.empty_cache()
+
+    # 12. the kernels line, then the result line
     path_launches = {
         name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
                **{f"serve_{arch}": arch_launches[arch][name] for arch in ARCHS}, "wire_codecs": wire_launches[name],
                "knee": knee_launches[name], "train": train_launches[name], "train_loop": loop_launches[name],
-               "rwkv_serve": rwkv_launches[name]}
+               "rwkv_serve": rwkv_launches[name], "rwkv_long_500k": long_launches[name],
+               "rwkv_train": rwkv_train_launches[name]}
         for name in COUNTED
     }
     kernels = [
@@ -2132,7 +2379,13 @@ def main() -> None:
             name="wkv6", route="cuda", source="src/repro_torch/csrc/rwkv_wkv.cu",
             replaces="src/repro/kernels/rwkv_wkv/kernel.py:54", launches=sum(path_launches["wkv6"].values()),
             launches_by_path=path_launches["wkv6"], max_abs_err=k5_err, library_ms=None,
-            **k5_rows["prefill"], decode=k5_rows["decode"],
+            **k5_rows["prefill"], decode=k5_rows["decode"], long_500k=long_row,
+        ),
+        dict(
+            name="wkv6_bwd", route="cuda", source="src/repro_torch/csrc/rwkv_wkv_bwd.cu",
+            # port-side: the JAX model runs the scan _wkv_scan and XLA differentiates it (no Pallas backward)
+            replaces="src/repro/models/rwkv.py:99", launches=sum(path_launches["wkv6_bwd"].values()),
+            launches_by_path=path_launches["wkv6_bwd"], **k5b_row, rwkv_train=rwkv_train_row,
         ),
     ]
     # this slice's new numbers, each on its own line beside the card

@@ -55,6 +55,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     rwkv_head_dim: int = 64
+    # long-context policy: does the arch run the 500k-token decode cell (launch/shapes.py)?
+    subquadratic: bool = False
     # training activation checkpointing: "block" recomputes each layer's
     # forward in the backward (torch.utils.checkpoint), "none" keeps it
     remat: Literal["none", "block"] = "block"

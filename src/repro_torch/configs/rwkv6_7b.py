@@ -15,6 +15,7 @@ CONFIG = register(
         vocab_size=65536,
         block="rwkv6",
         rwkv_head_dim=64,
+        subquadratic=True,  # O(1) decode state -> long_500k runs
         tie_embeddings=False,
     )
 )

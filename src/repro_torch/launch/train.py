@@ -7,14 +7,18 @@ failure) for ``--steps`` steps of synthetic data.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
         --layers 2 --steps 8 --seq 256 --batch 8 --dispatch phase_pipelined \
         --grad-compress ef8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
+        --layers 4 --steps 8 --seq 1024 --batch 4
 
 The table follows the JAX launcher's recipe: ``build_schedule(cfg, n,
 t_rank, plan="lossless")`` with ``t_rank = batch * seq // n`` tokens per
 rank, one row per MoE layer with an automatic envelope (for a dispatch
 that consumes table rows).  On one card the JAX launcher's ``n`` is its
 mesh's model axis, 1; the port takes ``n`` from ``--virtual-ranks``, as
-its serving launcher does.  The model keeps f32 masters and computes in
-bf16; AdamW follows ``cosine_schedule(peak_lr, warmup, steps)``.  Each
+its serving launcher does.  A model without MoE (RWKV6) plans no table,
+and ``--dispatch`` leaves it as it is.  The model keeps f32 masters and
+computes in bf16; AdamW follows ``cosine_schedule(peak_lr, warmup,
+steps)``.  Each
 step of ``train`` logs loss, grad norm, step ms and tokens/s; ``main``
 goes through ``train_loop`` (checkpoints under ``--ckpt``, every
 ``max(steps // 4, 10)`` steps and at the last, optional ``--grad-compress
@@ -136,7 +140,7 @@ def main(argv=None) -> dict:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    if args.dispatch:
+    if cfg.moe is not None and args.dispatch:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
     model = Model(cfg, device=args.device, param_dtype=torch.float32, requires_grad=True, seed=0)
     log.info("arch %s, %d layers, %.3f B params", cfg.name, cfg.n_layers,

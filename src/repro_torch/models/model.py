@@ -105,7 +105,8 @@ class Model(nn.Module):
 
     def loss_and_stats(self, batch: dict, *, schedule=None):
         """``loss`` plus the per-layer MoE stats (``routing`` [L, 1, E],
-        ``dropped`` / ``admitted`` [L, 1])."""
+        ``dropped`` / ``admitted`` [L, 1]); None for a model without MoE
+        (RWKV6), as in JAX."""
         hidden, stats = self._hidden(batch["tokens"], schedule, True)
         return self._ce(hidden, batch["targets"]), stats
 

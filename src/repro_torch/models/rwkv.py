@@ -1,6 +1,7 @@
 """RWKV6 ("Finch") block: data-dependent token shift and decay, and the WKV
 recurrence, which runs in kernel K5 (``kernels.rwkv_wkv.wkv6``) exactly
-where the JAX model runs its scan ``_wkv_scan``.
+where the JAX model runs its scan ``_wkv_scan``; in training its backward
+is kernel K5b, where XLA differentiates the scan.
 
 Dtypes follow the JAX block: the token-shift mixes, the LoRA weights, the
 decay base ``w0``, the bonus ``u``, the group norm and the channel-mix
@@ -84,8 +85,9 @@ def _heads(x, hd: int):
 
 
 def _wkv(r, k, v, w, u, s0):
-    """The recurrence on [B, S, H, D] streams through K5, which takes their
-    [B, H, S, D] views by stride.  Returns (y [B, S, H, D] f32, S_final)."""
+    """The recurrence on [B, S, H, D] streams through K5 (differentiable:
+    K5b in the backward), which takes their [B, H, S, D] views by stride.
+    Returns (y [B, S, H, D] f32, S_final)."""
     y, s = wkv_ops.wkv6(*(t.transpose(1, 2) for t in (r, k, v, w)), u, s0)
     return y.transpose(1, 2), s
 

@@ -2,11 +2,11 @@
 place, handing ``table.row(l)`` to the l-th MoE layer.  The training
 stack checkpoints each block under ``cfg.remat == "block"``
 (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of a period),
-so the backward recomputes the block's forward, K1 included.
+so the backward recomputes the block's forward, K1 (or K5) included.
 
 Two block kinds are ported, chosen by ``cfg.layer_kind(j)``: attention +
 MoE/SwiGLU (Mixtral's pattern) and RWKV6 (time mix + channel mix, whose
-per-layer state is the dict of ``rwkv.rwkv_init_state``; serving only).
+per-layer decode state is the dict of ``rwkv.rwkv_init_state``).
 Counterpart of ``repro/models/stack.py``.
 """
 
@@ -53,10 +53,14 @@ def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype) -> Block:
 
 
 def block_train(p: Block, cfg: ModelConfig, x, schedule, *, collect_stats=False):
-    """One training layer over x [B, S, d].  Returns (x, stats-or-None)."""
-    if p.kind != "attn":
-        raise NotImplementedError(f"training {p.kind} blocks is not ported yet (ROADMAP: RWKV training)")
+    """One training layer over x [B, S, d].  Returns (x, stats-or-None);
+    an rwkv6 layer (time mix from S = 0, then channel mix) has no stats."""
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
+    if p.kind == "rwkv6":
+        y, _ = rwkv.rwkv_time_mix(p.mixer, cfg, h)
+        x = x + y
+        y, _ = rwkv.rwkv_channel_mix(p.mixer, rmsnorm(x, p.ln2, eps=cfg.norm_eps))
+        return x + y, None
     x = x + attn.attn_train(p.mixer, cfg, h)
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
     return _ffn(p, cfg, x, h, schedule, collect_stats)

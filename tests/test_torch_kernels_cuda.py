@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2/K3 (its backward), K3b (ungrouped), K4 and K5
-(the WKV6 recurrence) against their plain PyTorch versions on the card,
+"""The CUDA kernels K1, K2/K3 (its backward), K3b (ungrouped), K4, K5
+(the WKV6 recurrence) and K5b (its backward) against their plain PyTorch
+versions on the card,
 at small and ragged shapes.  Skips without a CUDA device.  Run on
 the machine with the card:
 
@@ -13,7 +14,9 @@ their own f32 da/du/h to bf16, a few tenths of a percent of those land
 one ulp apart, and one such element times a large x moves a single
 weight gradient by more than the elementwise bound.  K5 computes in f32
 on both sides (bf16 r/k/v are widened first): 1e-4, for the order of
-the 64-term sums.
+the 64-term sums.  K5b too, in f32 on both sides: each gradient within
+1e-3 relative L2 and 1e-3 * max|plain| (sums over T and over 64 terms in
+another order).
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import attention_mask, flash_attention, flash_attention_plain, kernel_readable
 from repro_torch.kernels.flash_attention.ops import _launch as k4_launch
-from repro_torch.kernels.rwkv_wkv import wkv6, wkv6_plain
+from repro_torch.kernels.rwkv_wkv import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain
 from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops
 from repro_torch.kernels.moe_gemm import (
     moe_gemm,
@@ -441,6 +444,103 @@ def test_k5_kernel_raises_for_other_head_sizes(cuda_device):
         wkv6(*(torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16, device=cuda_device) for _ in range(4)),
              torch.zeros((2, 64), device=cuda_device))
     assert wkv6.launches == before
+
+
+def _close_bwd(got, want, tol=1e-3):
+    """K5b vs plain, gradient by gradient: relative L2 and max |diff| against max |plain|."""
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    for name, g, p in zip(names, got, want):
+        if p is None:
+            assert g is None, name
+            continue
+        assert g.dtype == torch.float32 and g.shape == p.shape and torch.isfinite(g).all(), name
+        scale = p.abs().max().item()
+        assert (g - p).norm().item() <= tol * p.norm().item(), (name, ((g - p).norm() / p.norm()).item())
+        assert (g - p).abs().max().item() <= tol * scale, (name, (g - p).abs().max().item(), scale)
+
+
+def _bwd_case(rng, b, h, t, device, layout, dtype, carried, w=None):
+    r, k, v, w_, u = _wkv_inputs(rng, b, h, t, device, layout, dtype)
+    w = w_ if w is None else w
+    dy = torch.from_numpy(rng.standard_normal((b, h, t, 64)).astype(np.float32)).to(device)
+    s0 = ds = None
+    if carried:
+        s0, ds = (torch.from_numpy((rng.standard_normal((b, h, 64, 64)) * 0.3).astype(np.float32)).to(device)
+                  for _ in range(2))
+    return r, k, v, w, u, dy, s0, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 1024])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("layout,dtype", [("bhtd", torch.bfloat16), ("btdh", torch.bfloat16), ("btdh", torch.float32),
+                                          ("bhtd", torch.float32)])
+def test_k5b_kernel_matches_plain_on_card(cuda_device, t, carried, layout, dtype):
+    """Carried: from s0 with a nonzero dS_final (ds0 returned); else from 0 with none."""
+    args = _bwd_case(np.random.default_rng(t), 2, 3, t, cuda_device, layout, dtype, carried)
+    before = wkv6_bwd.launches
+    got = wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert wkv6_bwd.launches == before + 1
+    _close_bwd(got, wkv6_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["near 0", "near 1"])
+@pytest.mark.parametrize("carried", [False, True])
+def test_k5b_kernel_with_extreme_decays(cuda_device, decay, carried):
+    """Decays near 0 (down to 1e-30 in a product of two steps) forget the state at every step, near 1 keep
+    it over all 97 steps (three snapshots and a ragged chunk)."""
+    rng = np.random.default_rng(14)
+    b, h, t = 1, 5, 97
+    eps = rng.uniform(1e-15, 1e-3, (b, h, t, 64))
+    w = torch.from_numpy((eps if decay == "near 0" else 1.0 - eps).astype(np.float32)).to(cuda_device)
+    args = _bwd_case(rng, b, h, t, cuda_device, "bhtd", torch.bfloat16, carried, w=w)
+    _close_bwd(wkv6_bwd(*args), wkv6_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+def test_k5b_kernel_copies_views_whose_rows_are_not_16_byte_aligned(cuda_device):
+    """Rows of a [.., 68] storage (bf16, 136 bytes apart) are handed to K5b as contiguous copies,
+    as to K5; dy keeps its own strides."""
+    rng = np.random.default_rng(15)
+    r, k, v, w, u, dy, s0, ds = _bwd_case(rng, 2, 3, 40, cuda_device, "bhtd", torch.bfloat16, True)
+    pad = [torch.nn.functional.pad(x, (0, 4))[..., :64] for x in (r, k, v, w)]
+    assert pad[0].stride()[2] == 68 and not pad[0].is_contiguous()
+    dy_t = dy.transpose(1, 2).contiguous().transpose(1, 2)  # [B, T, H, D] storage
+    _close_bwd(wkv6_bwd(*pad, u, dy_t, s0, ds), wkv6_bwd_plain(r, k, v, w, u, dy, s0, ds))
+
+
+@pytest.mark.cuda
+def test_k5b_kernel_raises_for_other_head_sizes(cuda_device):
+    """D != 64 raises on a CUDA tensor instead of running the plain version."""
+    r = torch.zeros((1, 2, 4, 16), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.full((1, 2, 4, 16), 0.5, device=cuda_device)
+    u = torch.zeros((2, 16), device=cuda_device)
+    before = wkv6_bwd.launches
+    with pytest.raises(ValueError, match="head size 16"):
+        wkv6_bwd(r, r, r, w, u, torch.zeros((1, 2, 4, 16), device=cuda_device))
+    assert wkv6_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_wkv6_autograd_runs_k5_and_k5b_on_card(cuda_device):
+    """Through autograd: one K5 launch forward, one K5b backward, the gradients in the inputs' dtypes
+    and equal to the plain backward's; under no_grad no node and no K5b."""
+    rng = np.random.default_rng(16)
+    r, k, v, w, u, dy, s0, ds = _bwd_case(rng, 2, 3, 70, cuda_device, "btdh", torch.bfloat16, True)
+    leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    fwd, bwd = wkv6.launches, wkv6_bwd.launches
+    y, s = wkv6(*leaves)
+    ((y * dy).sum() + (s * ds).sum()).backward()
+    assert (wkv6.launches, wkv6_bwd.launches) == (fwd + 1, bwd + 1)
+    want = wkv6_bwd_plain(r, k, v, w, u, dy, s0, ds)
+    for leaf, g in zip(leaves, (*want[:5], want[5])):
+        assert leaf.grad.dtype == leaf.dtype
+        torch.testing.assert_close(leaf.grad.float(), g.to(leaf.dtype).float(), rtol=2e-2, atol=2e-2)
+    with torch.no_grad():
+        y2, _ = wkv6(*leaves)
+    assert y2.grad_fn is None and wkv6_bwd.launches == bwd + 1
 
 
 @pytest.mark.cuda

@@ -3,7 +3,9 @@ the CPU: the WKV6 recurrence (K5's plain version) against the Pallas
 kernel in interpret mode and its scan oracle, the time and channel mixes
 and the group norm against the JAX functions, the whole serving path
 (prefill and greedy decode) with JAX weights transplanted, the
-transplant itself, and the serve launcher for an arch without MoE.
+transplant itself, the serve launcher for an arch without MoE, and a
+training forward and backward (held against JAX in
+``test_torch_rwkv_train.py``).
 
 Tolerances:
 
@@ -293,7 +295,16 @@ def test_serve_rwkv_raises_without_card_unless_cpu(monkeypatch):
         serve_mod.main(["--arch", ARCH, "--smoke", "--batch", "1", "--prompt-len", "4", "--new-tokens", "1"])
 
 
-def test_rwkv_training_is_not_ported_yet():
-    model = load_reference(*_params(), device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        model(torch.zeros((1, 4), dtype=torch.long))
+def test_rwkv_training_forward_and_backward_run():
+    """The training forward (``Model.forward``, through the differentiable recurrence) gives the serving
+    prefill's last logits, and its backward reaches every parameter."""
+    pcfg, params = _params()
+    model = load_reference(pcfg, params, device="cpu", dtype=torch.float32, requires_grad=True)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, pcfg.vocab_size, size=(B, S)))
+    logits = model(tokens)
+    assert logits.shape == (B, S, pcfg.vocab_size) and torch.isfinite(logits).all()
+    served, _ = model.prefill(tokens, model.init_cache(B, S, torch.float32))
+    torch.testing.assert_close(logits[:, -1].detach(), served, rtol=1e-5, atol=1e-5)
+    logits.logsumexp(-1).mean().backward()
+    for name, prm in model.named_parameters():
+        assert prm.grad is not None and torch.isfinite(prm.grad).all() and prm.grad.abs().max() > 0, name
