@@ -43,7 +43,8 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    greedy decode, 2 rounds; the kernels' launch counts are reset just
    before and read just after; then, on three prompt sets, K1 and K4 are held
    against their plain versions on every layer's own inputs inside a bf16
-   prefill and the prefill logits of the kernel path against the plain
+   prefill (K4, wherever it is held, also to a relative L2 of ``K4_REL_L2``
+   over each (b, head), printed beside the median |plain|) and the prefill logits of the kernel path against the plain
    path within the larger of ``LOGITS_REL_TOL`` and twice the bf16 noise
    floor measured in the same run on the same prompts (a prompt set whose
    floor alone exceeds ``LOGITS_REL_TOL`` is marked uninformative); then
@@ -91,8 +92,8 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    ``phase_pipelined``): launch counts exact, tokens in range, logits
    finite, a cold plan in round 0 kept in round 1 and equal to a host
    runtime's, and K1 and K4 held against their plain versions on every
-   layer's own inputs inside a bf16 prefill; each model freed before the
-   next.  Then one full-width Mixtral MoE layer (4 x 256 tokens) under the
+   layer's own inputs inside a bf16 prefill (``serve_and_hold``, which
+   phase 12 shares); each model freed before the next.  Then one full-width Mixtral MoE layer (4 x 256 tokens) under the
    serving controller's first table row with ``wire_dtype`` bf16, fp8 and
    int8: K1 held on the layer's own (dequantized) slots, the layer's
    kernel path within K1's tolerance and one codec step of its plain
@@ -176,12 +177,39 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    for 8 steps, counts reset just before and read just after (K5 2 x
    layers x steps, K5b layers x steps, every other kernel 0); the losses
    must be finite and the mean of the last two below step 0's, peak memory
-   under 80 GB; one more step traced by kernel group.
+   under 80 GB; one more step traced by kernel group;
+12. serve the seven configs the twelfth slice ports at full width with
+   seeded weights through ``serve_and_hold`` (one round, the controller on), each
+   freed before the next (``SLICE12``): Jamba-1.5-Large cut to layers 0-4
+   (Mamba at 0-3 through K6, MoE at 1 and 3 through K1 under a planned
+   table, attention at 4; batch 4 x 256, 8 new tokens), h2o-danube-3-4b
+   at all 24 layers (batch 1 x a 4608-token prompt, past its 4096-token
+   window, then 16 decode steps: K4 at head dim 120 with the window),
+   qwen2-1.5b (tied, QKV bias), granite-3-8b, granite-34b cut to 8 layers
+   (GELU, MQA: K4 at group 48), internvl2-26b and musicgen-large (256
+   prefix embeddings from the seed; musicgen's sinusoidal positions), the
+   dense ones at batch 4 x 256 with 8 new tokens.  Launch counts exact (K4
+   once per attention layer, K6 and K1 once per Mamba / MoE layer for the
+   prefill and each decode step, every other kernel 0); then K4, K6 (f32 on
+   both sides, ``WKV_TOL``) and K1 held against their plain versions on
+   every layer's own inputs inside a bf16 prefill of fresh prompts, and the
+   logits of the kernel path against the plain path within the larger of
+   ``LOGITS_REL_TOL`` and twice the noise floor (the plain path with K4's
+   f32 output scaled by 1 + 1e-7 N(0, 1)); with a window, the plain
+   version with the window's edge moved by one 64-key tile must read above
+   ``K4_REL_L2``, so the per-head check can see such a fault; K4 (beside SDPA), K6 at prefill
+   and at one decode step (in place on the carried state), and Jamba's K1
+   (beside ``torch.bmm`` SwiGLU) timed at the shapes of the first layer
+   that runs each, beside their plain versions and bounds (K6's the
+   largest of bytes, f32 FLOPs and
+   exponentials at 16 a clock an SM); each config's serving times, peak
+   memory and the phase's wall time.
 
 It prints K4's extra numbers and K2's/K3's per-launch times (with the
 dgrad launch's library time and bound) one a line beside the card's name
-and power limit, a ``kernels`` JSON line (seven entries, K5b's
-``replaces`` naming the scan XLA differentiates), then,
+and power limit, phase 12's numbers a config a line, a ``kernels`` JSON
+line (eight entries, K5b's and K6's ``replaces`` naming the scans the JAX
+model runs), then,
 last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before that line.
 """
@@ -236,6 +264,12 @@ K4_EXTRA_KEYS = (
     "library_host_us_per_call",
 )
 
+# K4 vs plain, per (b, head): relative L2 over the rows and columns of a head.  Each rounds its own p to bf16
+# (the kernel against a running max) and its own output: this script read 0.81e-3 to 1.65e-3 in the served
+# models on an H100, the largest at h2o-danube's q[1,32,4608,120] with its 4096 window, where the median |o| is
+# 0.025 and the elementwise BF16_TOL is as large as a typical output.  The plain version with that window's
+# edge moved by one 64-key tile read 1.75e-2 there; phase 12 fails unless such a move lies above the limit
+K4_REL_L2 = 3e-3
 GRAD_REL_TOL = 2e-2  # per-leaf relative L2 of the 1-layer train-step gradients, kernel vs plain path
 
 # serving shape: the first slice's path
@@ -294,6 +328,23 @@ WIRE_REL_TOL = {"fp8": 0.1, "int8": 0.03}
 # 4096 x 14336, 2 of 6144 x 10752, 16 of 4096 x 1536), the batch at which K1 is held against its plain version
 KNEE_ROUTERS, KNEE_CHECK_B = ("mixtral-8x7b", "dbrx", "qwen3-moe"), 4096
 KNEE_LIBRARY_B = (1, 4, 16, 64, 4096)  # the batches at which torch.bmm SwiGLU is timed beside K1
+
+# phase 12: the seven configs the twelfth slice ports, served at full width with seeded weights through serve()
+# (one round, the controller on: only Jamba has MoE to plan), each freed before the next: (arch, layers kept
+# (None: all), batch, prompt, new tokens).  Jamba keeps layers 0-4 (Mamba at 0-3, MoE at 1 and 3, attention
+# at 4; about 48 GB of bf16 weights), granite-34b 8 of 88; h2o-danube's 4608-token prompt is longer than its
+# 4096-token window and no multiple of it, so the ring slots wrap before decode
+SLICE12 = (
+    ("jamba-1.5-large-398b", 5, 4, 256, 8),
+    ("h2o-danube-3-4b", None, 1, 4608, 16),
+    ("qwen2-1.5b", None, 4, 256, 8),
+    ("granite-3-8b", None, 4, 256, 8),
+    ("granite-34b", 8, 4, 256, 8),
+    ("internvl2-26b", None, 4, 256, 8),
+    ("musicgen-large", None, 4, 256, 8),
+)
+# the special-function units' exponentials: 16 a clock an SM, 132 SMs, at the 1.98 GHz boost clock (H100 SXM)
+EXP_PER_S = 16 * 132 * 1.98e9
 
 # the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
 ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
@@ -367,6 +418,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as k4
     from repro_torch.kernels.moe_gemm import ops as k1
     from repro_torch.kernels.rwkv_wkv import ops as k5
+    from repro_torch.kernels.mamba_scan import ops as k6
     from repro_torch.core import ComputeModel, ScheduleRuntime, knee_model, make_serving_controller
     from repro_torch.core.schedule import TABLE_LEAVES
     from repro_torch.launch import simulate
@@ -510,10 +562,19 @@ def main() -> None:
             fail(f"{what}: max |kernel - plain| {float(err.max()):.4g} beyond {BF16_TOL} + {BF16_TOL}*|plain|")
         return float(err.max())
 
+    def close_f32(out, ref, what: str) -> float:
+        if not torch.isfinite(out).all():
+            fail(f"{what}: non-finite output")
+        err = (out - ref).abs()
+        if float((err - WKV_TOL * ref.abs()).max()) > WKV_TOL:
+            fail(f"{what}: max |kernel - plain| {float(err.max()):.4g} beyond {WKV_TOL} + {WKV_TOL}*|plain|")
+        return float(err.max())
+
     COUNTED = {
         "moe_gemm_grouped": k1.moe_gemm, "flash_attention_fwd": k4.flash_attention,
         "moe_gemm_grouped_dgrad": k1.moe_gemm_dgrad, "moe_gemm_grouped_wgrad": k1.moe_gemm_wgrad,
         "moe_gemm_ungrouped": k1.moe_gemm_ungrouped, "wkv6": k5.wkv6, "wkv6_bwd": k5.wkv6_bwd,
+        "selective_scan": k6.selective_scan,
     }
 
     def reset_counts():
@@ -1188,11 +1249,25 @@ def main() -> None:
     def plain_flash(q, k, v, *, causal=True, window=None, prescale=1.0):
         return k4.flash_attention_plain((q * prescale) * (q.shape[-1] ** -0.5), k, v, causal=causal, window=window)
 
+    k4_layer_rel = []  # per held K4 call: (the largest relative L2 over its (b, head)s, median |plain|)
+
     def held_k4(q, k, v, *, causal=True, window=None, prescale=1.0):
         out = k4._launch(q, k, v, causal=causal, window=window, prescale=prescale)  # a comparison launch: not counted
         ref = plain_flash(q, k, v, causal=causal, window=window, prescale=prescale)
-        k4_layer_errs.append(close(out, ref, f"K4 in layer {len(k4_layer_errs)}"))
+        what = f"K4 in layer {len(k4_layer_errs)}"
+        k4_layer_errs.append(close(out, ref, what))
+        o, r = out.float().flatten(2), ref.float().flatten(2)
+        rel = float(((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)).max())
+        k4_layer_rel.append((rel, float(r.abs().median())))
+        if rel > K4_REL_L2:
+            fail(f"{what}: relative L2 over a (b, head) {rel:.3g} beyond {K4_REL_L2} (median |plain| "
+                 f"{k4_layer_rel[-1][1]:.3g})")
         return out
+
+    def k4_rel_text() -> str:
+        """The held K4 calls' worst relative L2 over a (b, head), beside its limit and the median |plain|."""
+        rel, med = max(k4_layer_rel)
+        return f"rel L2 over a (b, head) {rel:.3g} (tol {K4_REL_L2}; median |plain| there {med:.3g})"
 
     ngen = torch.Generator(device=dev).manual_seed(4)
 
@@ -1210,6 +1285,7 @@ def main() -> None:
         path within the larger of LOGITS_REL_TOL and twice the noise floor."""
         k1_layer_errs.clear()
         k4_layer_errs.clear()
+        k4_layer_rel.clear()
         with mock.patch.object(k1, "moe_gemm", held_k1), mock.patch.object(k4, "flash_attention", held_k4):
             kernel_logits = prefill_logits(p, table=table)
         if len(k1_layer_errs) != LAYERS or len(k4_layer_errs) != LAYERS or not torch.isfinite(kernel_logits).all():
@@ -1217,7 +1293,7 @@ def main() -> None:
                  f"of {LAYERS} layers, or non-finite logits")
         print(f"{label}: K1 inside the {LAYERS}-layer bf16 prefill, on each layer's own packed inputs: max_abs_err "
               f"{max(k1_layer_errs):.4g}; K4 on each layer's own strided q/k/v: max_abs_err {max(k4_layer_errs):.4g} "
-              f"(tol {BF16_TOL} + {BF16_TOL}*|plain|)")
+              f"(tol {BF16_TOL} + {BF16_TOL}*|plain|), {k4_rel_text()}")
         with mock.patch.object(k4, "flash_attention", plain_flash):
             with mock.patch.object(k1, "moe_gemm", k1.moe_gemm_plain):
                 plain_logits = prefill_logits(p, table=table)
@@ -1360,6 +1436,7 @@ def main() -> None:
             held against its plain version (comparison launches, not counted)."""
             k1_layer_errs.clear()
             k4_layer_errs.clear()
+            k4_layer_rel.clear()
             with mock.patch.object(k1, "moe_gemm", held_k1), mock.patch.object(k4, "flash_attention", held_k4):
                 out = fn()
             if len(k1_layer_errs) != LAYERS or len(k4_layer_errs) != k4_layers:
@@ -1556,6 +1633,183 @@ def main() -> None:
     del model, drift_table, dres
     torch.cuda.empty_cache()
 
+    # the per-config serving check of phases 6d and 12: serve() at full width, then a bf16 prefill with every
+    # kernel held on each layer's own inputs, and each kernel's row at the inputs of its first call
+    def k4_row_at(q, k, v, *, causal=True, window=None, prescale=1.0) -> dict:
+        """K4 at one call's inputs: the held errors so far, kernel / plain / SDPA times, and the bound on the
+        keys each query row sees (the causal triangle, cut by the window)."""
+        b_, h_, sq_, d_ = q.shape
+        kh_, skv = k.shape[1], k.shape[2]
+        seen = torch.clamp(torch.arange(sq_, dtype=torch.float64) + (skv - sq_) + 1, max=skv)
+        if window is not None:
+            seen = torch.clamp(seen, max=window)
+        b_ms, b_by = bound(4.0 * d_ * b_ * h_ * float(seen.sum()), 2 * (2 * b_ * h_ * sq_ * d_ + 2 * b_ * kh_ * skv * d_))
+        mask = None if window is None else k4.attention_mask(sq_, skv, causal=causal, window=window, device=dev)
+        rel, med = max(k4_layer_rel)
+        extra = {}
+        if window is not None and skv > window > 64:
+            # the per-head check must see a window fault: the plain version with the window edge moved by one
+            # 64-key tile, against itself
+            ref = plain_flash(q, k, v, causal=causal, window=window, prescale=prescale).float().flatten(2)
+            moved = plain_flash(q, k, v, causal=causal, window=window - 64, prescale=prescale).float().flatten(2)
+            extra["window_moved_rel_l2"] = float(((moved - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+            print(f"K4 window {window} moved to {window - 64} in the plain version: rel L2 over a (b, head) "
+                  f"{extra['window_moved_rel_l2']:.3g} against the limit {K4_REL_L2}")
+            if extra["window_moved_rel_l2"] <= K4_REL_L2:
+                fail("K4: a window edge moved by a tile stays within K4_REL_L2, so the per-head check is blind to it")
+            del ref, moved
+        return {
+            "shape": f"q[{b_},{h_},{sq_},{d_}] kv[{b_},{kh_},{skv},{d_}] causal, window {window}, GQA group "
+                     f"{h_ // kh_}, the model's views",
+            "max_abs_err": max(k4_layer_errs), "rel_l2": rel, "median_abs_plain": med,
+            "ms": graph_ms(lambda: k4._launch(q, k, v, causal=causal, window=window, prescale=prescale), 20),
+            "plain_ms": cuda_ms(lambda: plain_flash(q, k, v, causal=causal, window=window, prescale=prescale), 2,
+                                warmup=1),
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None, scale=prescale * d_**-0.5, enable_gqa=True), 20),
+            "bound_ms": b_ms, "bound_by": b_by, **extra,
+        }
+
+    def k1_row_at(x, w_gate, w_up, w_down, row_valid) -> dict:
+        """K1 at one call's inputs: the held error so far, kernel / plain / torch.bmm SwiGLU times, and the
+        bound on the tiles this run's routing occupies."""
+        e_, c_, d_ = x.shape
+        f_ = w_gate.shape[-1]
+        occ = k1.tile_occupancy(row_valid)
+        rows, live = int(occ.sum()), int(occ.any(dim=1).sum())
+        b_ms, b_by = bound(6.0 * d_ * f_ * rows, rows * d_ * 2 + live * 3 * d_ * f_ * 2 + e_ * c_ + e_ * c_ * d_ * 2)
+        return {
+            "shape": f"x[{e_},{c_},{d_}] w[{e_},{d_},{f_}] occupied rows {rows}, live experts {live}",
+            "max_abs_err": max(k1_layer_errs), "ms": graph_ms(lambda: k1._launch(x, w_gate, w_up, w_down, row_valid), 10),
+            "plain_ms": cuda_ms(lambda: k1.moe_gemm_plain(x, w_gate, w_up, w_down, row_valid), 1, warmup=1),
+            "library_ms": graph_ms(lambda: torch.bmm(F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up), w_down), 10),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+
+    def k6_cost(x, dt, bm, cm, a, d_skip, h0) -> dict:
+        """The least time: the largest of the bytes over the memory rate, the f32 FLOPs (4 a state and step,
+        2 a channel and step for the skip) over the f32 peak and the exponentials over the SFU rate."""
+        b_, s_, di = x.shape
+        ds = a.shape[1]
+        nbytes = x.numel() * x.element_size() + 4 * (dt.numel() + bm.numel() + cm.numel() + a.numel() + di
+                                                     + b_ * s_ * di + b_ * di * ds * (2 if h0 is not None else 1))
+        times = {"bytes": nbytes / HBM_BYTES_PER_S, "f32 FLOPs": (4.0 * ds + 2.0) * b_ * s_ * di / PEAK_F32_FLOPS,
+                 "exponentials": float(b_ * s_ * di * ds) / EXP_PER_S}
+        by = max(times, key=times.get)
+        return {"bound_ms": times[by] * 1e3, "bound_by": "bytes" if by == "bytes" else "operations",
+                "bound_set_by": by, "bound_parts_ms": {key: v * 1e3 for key, v in times.items()}}
+
+    def k6_row_at(x, dt, bm, cm, a, d_skip, h0=None, h_out=None) -> dict:
+        """K6 at one call's inputs: the held error so far, kernel and plain times, and the bound."""
+        return {
+            "shape": f"x[{','.join(map(str, x.shape))}] {str(x.dtype).removeprefix('torch.')} ds {a.shape[1]}, "
+                     + ("from zeros" if h0 is None else "from the carried state"),
+            "max_abs_err": max(k6_layer_errs), "ms": graph_ms(lambda: k6._launch(x, dt, bm, cm, a, d_skip, h0, h_out), 20),
+            "plain_ms": cuda_ms(lambda: k6.selective_scan_plain(x, dt, bm, cm, a, d_skip, h0), 2, warmup=1),
+            "library_ms": None, **k6_cost(x, dt, bm, cm, a, d_skip, h0),
+        }
+
+    k6_layer_errs = []
+
+    def held_k6(x, dt, bm, cm, a, d_skip, h0=None, h_out=None):
+        ref_y, ref_h = k6.selective_scan_plain(x, dt, bm, cm, a, d_skip, h0)  # before the kernel writes h_out
+        y, h = k6._launch(x, dt, bm, cm, a, d_skip, h0, h_out)  # a comparison launch: not counted
+        n = len(k6_layer_errs)
+        k6_layer_errs.append(max(close_f32(y, ref_y, f"K6 y in Mamba layer {n}"),
+                                 close_f32(h, ref_h, f"K6 h in Mamba layer {n}")))
+        return y, h
+
+    def print_rows(arch, rows) -> None:
+        for name, row in rows.items():
+            lib = {"flash_attention_fwd": "SDPA", "moe_gemm_grouped": "torch.bmm SwiGLU"}.get(name)
+            print(f"{arch}: {name} at its first layer's {row['shape']}: kernel {row['ms']:.4f} ms | plain "
+                  f"{row['plain_ms']:.3f} ms" + (f" | {lib} {row['library_ms']:.4f} ms" if lib else "")
+                  + f" | bound {row['bound_ms']:.4f} ms ({row.get('bound_set_by', row['bound_by'])}), "
+                  f"{100 * row['bound_ms'] / row['ms']:.1f}% of bound ({card})")
+
+    def serve_and_hold(acfg, bsz: int, plen: int, new: int, rounds: int, prompt_seed: int):
+        """Serve ``acfg`` with seeded weights through serve(), the controller on, and check it: each kernel
+        launched once a layer that runs it in each prefill and decode step, tokens and logits in range, the
+        MoE stats and a cold plan kept.  Then a bf16 prefill of fresh prompts (``prompt_seed``) under the
+        served table with K1, K4 and K6 held on each layer's own inputs, and each kernel's row at its first
+        call's inputs.  Returns the model, the serve result, the launches, the held logits, the prompts and
+        the prefix embeddings (None without a frontend), and the rows by kernel name."""
+        arch = acfg.name
+        kinds = [acfg.layer_kind(l) for l in range(acfg.n_layers)]
+        n_attn, n_mamba, n_moe = kinds.count("attn"), kinds.count("mamba"), acfg.n_moe_layers
+        prefix = acfg.frontend_tokens if acfg.frontend != "none" else 0
+        t0 = time.perf_counter()
+        amodel = Model(acfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        a_params = sum(prm.numel() for prm in amodel.parameters())
+        moe_text = f", {acfg.moe.n_experts} experts top-{acfg.moe.top_k} F {acfg.moe.d_ff_expert}" if n_moe else ""
+        print(f"model: {arch} {acfg.n_layers} layers ({n_attn} attention, {n_mamba} Mamba, {n_moe} MoE), "
+              f"{a_params / 1e9:.2f} B params ({2 * a_params / 1e9:.2f} GB bf16){moe_text}, heads "
+              f"{acfg.n_heads}/{acfg.n_kv_heads} of {acfg.resolved_head_dim}, window {acfg.sliding_window}, prefix "
+              f"{prefix}, init {time.perf_counter() - t0:.1f} s")
+        reset_counts()
+        res = serve(amodel, batch=bsz, prompt_len=plen, new_tokens=new, rounds=rounds, controller=True,
+                    virtual_ranks=VIRTUAL_RANKS, seed=0)
+        got = read_counts()
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(flash_attention_fwd=rounds * n_attn, selective_scan=rounds * n_mamba * (1 + new),
+                      moe_gemm_grouped=rounds * n_moe * (1 + new))
+        for r in range(rounds):
+            print(f"{arch} serve round {r}: plan {res.plan_ms[r]:.1f} ms | prefill {res.prefill_ms[r]:.1f} ms "
+                  f"({bsz * (prefix + plen) / res.prefill_ms[r] * 1e3:.0f} tok/s over {prefix} prefix + {plen} "
+                  f"tokens) | decode {res.decode_ms[r]:.1f} ms ({res.decode_ms[r] / new:.2f} ms/step) ({card})")
+        print(f"{arch} serve: launches {got} (expected {expect})")
+        if got != expect:
+            fail(f"{arch} serving path launches {got}, expected {expect}")
+        if res.tokens.shape != (rounds, bsz, new) or int(res.tokens.min()) < 0 \
+                or int(res.tokens.max()) >= acfg.vocab_size:
+            fail(f"{arch}: generated tokens out of range or misshapen: {tuple(res.tokens.shape)}")
+        if res.first_logits.shape != (bsz, acfg.vocab_size) or not torch.isfinite(res.first_logits).all():
+            fail(f"{arch}: prefill logits misshapen or non-finite")
+        if n_moe:
+            print(f"{arch} serve: MoE routed {res.routed:.0f}, admitted {res.admitted:.0f}, dropped "
+                  f"{res.dropped:.0f} | table n_phases {res.tables[-1].n_phases[0].item()} caps "
+                  f"{res.tables[-1].caps[0].tolist()} envelope {list(res.tables[-1].envelope)} | "
+                  f"{controller_line(res.controller[-1])}")
+            if not 0 < res.admitted <= res.routed or res.dropped < 0:
+                fail(f"{arch}: MoE stats inconsistent: routed {res.routed}, admitted {res.admitted}, "
+                     f"dropped {res.dropped}")
+            if [d_.actions for d_ in res.decisions] != [("miss",)] + [("keep",)] * (rounds - 1):
+                fail(f"{arch} serving decisions {res.decisions}, expected a cold plan in round 0 kept after")
+        elif res.table is not None or res.decisions:
+            fail(f"{arch}: a model without MoE planned a table")
+
+        pgen = torch.Generator(device=dev).manual_seed(prompt_seed)
+        prompts = torch.randint(0, acfg.vocab_size, (bsz, plen), generator=pgen, device=dev)
+        ext = None if not prefix else torch.randn((bsz, prefix, acfg.d_model), generator=pgen, device=dev).to(
+            torch.bfloat16)
+        first = {}
+
+        def first_of(name, held):
+            def run(*args, **kw):
+                first.setdefault(name, (args, kw))
+                return held(*args, **kw)
+            return run
+
+        for errs in (k1_layer_errs, k4_layer_errs, k4_layer_rel, k6_layer_errs):
+            errs.clear()
+        with mock.patch.object(k1, "moe_gemm", first_of("moe_gemm_grouped", held_k1)), \
+                mock.patch.object(k4, "flash_attention", first_of("flash_attention_fwd", held_k4)), \
+                mock.patch.object(k6, "selective_scan", first_of("selective_scan", held_k6)):
+            logits = amodel.prefill(prompts, amodel.init_cache(bsz, prefix + plen), ext, schedule=res.table)[0].float()
+        held = (len(k4_layer_errs), len(k6_layer_errs), len(k1_layer_errs))
+        if held != (n_attn, n_mamba, n_moe) or not torch.isfinite(logits).all():
+            fail(f"{arch} bf16 prefill: K4/K6/K1 held in {held} layers, expected {(n_attn, n_mamba, n_moe)}, "
+                 "or non-finite logits")
+        print(f"{arch}: bf16 prefill with K4 held in {n_attn}, K6 in {n_mamba}, K1 in {n_moe} layers on their own "
+              f"inputs: max_abs_err K4 {max(k4_layer_errs):.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|), {k4_rel_text()}"
+              + (f"; K6 {max(k6_layer_errs):.4g} (tol {WKV_TOL} + {WKV_TOL}*|plain|, f32)" if n_mamba else "")
+              + (f"; K1 {max(k1_layer_errs):.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|)" if n_moe else ""))
+        row_of = {"flash_attention_fwd": k4_row_at, "moe_gemm_grouped": k1_row_at, "selective_scan": k6_row_at}
+        rows = {name: row_of[name](*args, **kw) for name, (args, kw) in first.items()}
+        print_rows(arch, rows)
+        return amodel, res, got, logits, prompts, ext, rows
+
     # 6d. Qwen3-MoE-235B-A22B and DBRX-132B at full width, cut to ARCH_LAYERS layers, through serve (the
     # controller plans at 16 and 2 experts a virtual rank), with K1 and K4 held per layer in a bf16 prefill;
     # then one full-width Mixtral MoE layer under a table row with the fp8 and int8 wire codecs
@@ -1565,97 +1819,14 @@ def main() -> None:
         acfg = get_config(arch)
         scfg = dataclasses.replace(acfg, n_layers=ARCH_LAYERS,
                                    moe=dataclasses.replace(acfg.moe, dispatch="phase_pipelined", use_pallas=True))
-        t0 = time.perf_counter()
-        amodel = Model(scfg, device=dev, seed=0)
-        torch.cuda.synchronize()
-        a_params = sum(prm.numel() for prm in amodel.parameters())
-        print(f"model: {arch} {ARCH_LAYERS} layers, {a_params / 1e9:.2f} B params ({2 * a_params / 1e9:.2f} GB bf16), "
-              f"{scfg.moe.n_experts} experts top-{scfg.moe.top_k} F {scfg.moe.d_ff_expert}, heads "
-              f"{scfg.n_heads}/{scfg.n_kv_heads} of {scfg.resolved_head_dim}, init {time.perf_counter() - t0:.1f} s")
-        reset_counts()
-        ares = serve(amodel, batch=BATCH, prompt_len=PROMPT, new_tokens=ARCH_NEW, rounds=ROUNDS, controller=True,
-                     virtual_ranks=VIRTUAL_RANKS, seed=0)
-        arch_launches[arch] = got = read_counts()
-        expect = dict.fromkeys(COUNTED, 0)
-        expect.update(moe_gemm_grouped=ROUNDS * (1 + ARCH_NEW) * ARCH_LAYERS, flash_attention_fwd=ROUNDS * ARCH_LAYERS)
-        for r in range(ROUNDS):
-            print(f"{arch} serve round {r}: plan {ares.plan_ms[r]:.1f} ms | prefill {ares.prefill_ms[r]:.1f} ms "
-                  f"({BATCH * PROMPT / ares.prefill_ms[r] * 1e3:.0f} tok/s) | decode {ares.decode_ms[r]:.1f} ms "
-                  f"({ares.decode_ms[r] / ARCH_NEW:.2f} ms/step) ({card})")
-        print(f"{arch} serve: launches {got} (expected {expect}) | MoE routed {ares.routed:.0f}, admitted "
-              f"{ares.admitted:.0f}, dropped {ares.dropped:.0f} | table n_phases {ares.tables[-1].n_phases[0].item()} "
-              f"caps {ares.tables[-1].caps[0].tolist()} envelope {list(ares.tables[-1].envelope)} | "
-              f"{controller_line(ares.controller[-1])}")
-        if got != expect:
-            fail(f"{arch} serving path launches {got}, expected {expect}")
-        if ares.tokens.shape != (ROUNDS, BATCH, ARCH_NEW) or int(ares.tokens.min()) < 0 \
-                or int(ares.tokens.max()) >= scfg.vocab_size:
-            fail(f"{arch}: generated tokens out of range or misshapen: {tuple(ares.tokens.shape)}")
-        if ares.first_logits.shape != (BATCH, scfg.vocab_size) or not torch.isfinite(ares.first_logits).all():
-            fail(f"{arch}: prefill logits misshapen or non-finite")
-        if not 0 < ares.admitted <= ares.routed or ares.dropped < 0:
-            fail(f"{arch}: MoE stats inconsistent: routed {ares.routed}, admitted {ares.admitted}, dropped {ares.dropped}")
+        amodel, ares, arch_launches[arch], *_, arch_rows[arch] = serve_and_hold(
+            scfg, BATCH, PROMPT, ARCH_NEW, ROUNDS, prompt_seed=11)
         host_rt, host_scen = make_serving_controller(scfg, n_ranks=VIRTUAL_RANKS, drift="none", rounds=ROUNDS,
                                                      device="cpu")
         host_rt.observe(demand_estimate(scfg, float(BATCH * PROMPT * scfg.moe.top_k), host_scen, 0))
-        if [d_.actions for d_ in ares.decisions] != [("miss",), ("keep",)] or not all(
-                tables_equal(t, host_rt.table()) for t in ares.tables):
-            fail(f"{arch} serving tables: decisions {ares.decisions}, expected a cold plan in round 0 kept in round 1 "
-                 "equal to a host runtime's")
-        k1_layer_errs.clear()
-        k4_layer_errs.clear()
-        agen = torch.Generator(device=dev).manual_seed(11)
-        aprompts = torch.randint(0, scfg.vocab_size, (BATCH, PROMPT), generator=agen, device=dev)
-        first = {}  # layer 0's K1 and K4 inputs, timed below at this config's shapes
-
-        def held_k1_first(*args):
-            first.setdefault("k1", args)
-            return held_k1(*args)
-
-        def held_k4_first(q, k, v, **kw):
-            first.setdefault("k4", (q, k, v, kw))
-            return held_k4(q, k, v, **kw)
-
-        with mock.patch.object(k1, "moe_gemm", held_k1_first), mock.patch.object(k4, "flash_attention", held_k4_first):
-            held_logits = prefill_logits(aprompts, amodel, ares.table)
-        if len(k1_layer_errs) != ARCH_LAYERS or len(k4_layer_errs) != ARCH_LAYERS or not torch.isfinite(held_logits).all():
-            fail(f"{arch} bf16 prefill: K1 held in {len(k1_layer_errs)} and K4 in {len(k4_layer_errs)} of "
-                 f"{ARCH_LAYERS} layers, or non-finite logits")
-        xa, wga, wua, wda, rva = first["k1"]
-        ea, ca, da_ = xa.shape
-        fa = wga.shape[-1]
-        occ = k1.tile_occupancy(rva)
-        rows, live_e = int(occ.sum()), int(occ.any(dim=1).sum())
-        b_ms, b_by = bound(6.0 * da_ * fa * rows, rows * da_ * 2 + live_e * 3 * da_ * fa * 2 + ea * ca + ea * ca * da_ * 2)
-        k1_arch = {
-            "shape": f"x[{ea},{ca},{da_}] w[{ea},{da_},{fa}] occupied rows {rows}, live experts {live_e}",
-            "max_abs_err": max(k1_layer_errs), "ms": graph_ms(lambda: k1._launch(xa, wga, wua, wda, rva), 20),
-            "plain_ms": cuda_ms(lambda: k1.moe_gemm_plain(xa, wga, wua, wda, rva), 2, warmup=1),
-            "library_ms": graph_ms(lambda: torch.bmm(F.silu(torch.bmm(xa, wga)) * torch.bmm(xa, wua), wda), 20),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-        qa, ka, va, kwa = first["k4"]
-        bq, hq, sq, dq = qa.shape
-        kvh = ka.shape[1]
-        b_ms, b_by = bound(4.0 * dq * bq * hq * sq * (sq + 1) / 2, 2 * (2 * bq * hq * sq * dq + 2 * bq * kvh * sq * dq))
-        k4_arch = {
-            "shape": f"q[{bq},{hq},{sq},{dq}] kv[{bq},{kvh},{sq},{dq}] causal, GQA group {hq // kvh}, the model's views",
-            "max_abs_err": max(k4_layer_errs), "ms": graph_ms(lambda: k4._launch(qa, ka, va, **kwa), 50),
-            "plain_ms": cuda_ms(lambda: plain_flash(qa, ka, va, **kwa), 10),
-            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-                qa, ka, va, is_causal=True, scale=kwa.get("prescale", 1.0) * dq**-0.5, enable_gqa=True), 50),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-        arch_rows[arch] = {"moe_gemm_grouped": k1_arch, "flash_attention_fwd": k4_arch}
-        for name, row in (("K1", k1_arch), ("K4", k4_arch)):
-            print(f"{arch}: {name} inside the {ARCH_LAYERS}-layer bf16 prefill, on each layer's own inputs: "
-                  f"max_abs_err {row['max_abs_err']:.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|) | layer 0's "
-                  f"{row['shape']}: kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.3f} ms | "
-                  f"{'torch.bmm SwiGLU' if name == 'K1' else 'SDPA'} {row['library_ms']:.4f} ms | bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of bound "
-                  f"({card})")
-        del first, xa, wga, wua, wda, rva, qa, ka, va
-        del amodel, ares, held_logits, host_rt
+        if not all(tables_equal(t, host_rt.table()) for t in ares.tables):
+            fail(f"{arch} serving tables differ from a host runtime's")
+        del amodel, ares, host_rt, _
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1954,14 +2125,6 @@ def main() -> None:
         w = torch.sigmoid(noise) * 0.5 + 0.45 if wide_w else torch.exp(-torch.exp(-2.0 + 0.5 * noise))
         return r, k, v, w
 
-    def close_f32(out, ref, what: str) -> float:
-        if not torch.isfinite(out).all():
-            fail(f"{what}: non-finite output")
-        err = (out - ref).abs()
-        if float((err - WKV_TOL * ref.abs()).max()) > WKV_TOL:
-            fail(f"{what}: max |kernel - plain| {float(err.max()):.4g} beyond {WKV_TOL} + {WKV_TOL}*|plain|")
-        return float(err.max())
-
     def wkv_cost(t: int, carried: bool) -> tuple[float, str]:
         n = b5 * h5 * t * hd5
         state = b5 * h5 * hd5 * hd5 * 4
@@ -2195,7 +2358,7 @@ def main() -> None:
     applies = {arch: shapes.cell_applicable(get_config(arch), long_cell)[0] for arch in sorted(ARCH_REGISTRY)}
     print(f"long_500k applies: {applies}")
     if applies != {arch: get_config(arch).subquadratic for arch in applies} or not applies["rwkv6-7b"]:
-        fail(f"long_500k cell_applicable {applies}: expected True for rwkv6-7b alone")
+        fail(f"long_500k cell_applicable {applies}: expected True for the subquadratic configs (rwkv6-7b among them)")
     specs = shapes.input_specs(rcfg, long_cell)
 
     def cache_bytes(caches) -> int:
@@ -2326,13 +2489,101 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
 
-    # 12. the kernels line, then the result line
+    # 12. the twelfth slice: the seven configs above, each through serve_and_hold at full width with seeded
+    # weights, then the prefill logits of the kernel path against the plain path within the larger of
+    # LOGITS_REL_TOL and twice the noise floor (the plain path against itself with K4's f32 output scaled by
+    # 1 + 1e-7 N(0, 1) before its rounding), and K6 timed at one decode step
+    t_phase = time.perf_counter()
+    ngen12 = torch.Generator(device=dev).manual_seed(12)
+
+    def perturbed_flash(q, k, v, *, causal=True, window=None, prescale=1.0):
+        """plain_flash with its f32 output scaled by 1 + 1e-7 N(0, 1) before the bf16 rounding."""
+        acc = k4.flash_attention_plain(((q * prescale) * (q.shape[-1] ** -0.5)).float(), k, v, causal=causal,
+                                       window=window)  # an f32 q: the same arithmetic, the output left in f32
+        return (acc * (1 + 1e-7 * torch.randn(acc.shape, generator=ngen12, device=dev))).to(q.dtype)
+
+    slice12, slice12_launches, s12_k4, s12_k6, s12_k1 = {}, dict.fromkeys(COUNTED, 0), {}, {}, {}
+
+    def slice12_config(arch, keep, bsz, plen, new) -> None:
+        """Serve one config, check it, time its kernels; everything it holds is freed on return."""
+        acfg = get_config(arch)
+        if keep is not None:
+            acfg = dataclasses.replace(acfg, n_layers=keep)
+        if acfg.moe is not None:
+            acfg = dataclasses.replace(acfg, moe=dataclasses.replace(acfg.moe, dispatch="phase_pipelined",
+                                                                     use_pallas=True))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        amodel, ares, got, kernel_logits, prompts12, ext12, rows = serve_and_hold(acfg, bsz, plen, new, 1,
+                                                                                  prompt_seed=13)
+        serve_s = time.perf_counter() - t0
+        for key in COUNTED:
+            slice12_launches[key] += got[key]
+        prefix = 0 if ext12 is None else ext12.shape[1]
+
+        def logits12():
+            caches = amodel.init_cache(bsz, prefix + plen)
+            return amodel.prefill(prompts12, caches, ext12, schedule=ares.table)[0].float()
+
+        with mock.patch.object(k1, "moe_gemm", k1.moe_gemm_plain), \
+                mock.patch.object(k6, "selective_scan", k6.selective_scan_plain):
+            with mock.patch.object(k4, "flash_attention", plain_flash):
+                plain_logits = logits12()
+            with mock.patch.object(k4, "flash_attention", perturbed_flash):
+                noise_logits = logits12()
+        rel, floor = row_rel(kernel_logits, plain_logits), row_rel(noise_logits, plain_logits)
+        logits_tol = max(LOGITS_REL_TOL, MIXTRAL_BF16_NOISE_MULT * floor)
+        same_top1 = int((kernel_logits.argmax(-1) == plain_logits.argmax(-1)).sum())
+        print(f"{arch}: prefill logits kernel vs plain path: max row rel L2 {rel:.3g} (tol {logits_tol:.3g}), same "
+              f"argmax {same_top1}/{bsz}; noise floor {floor:.3g}")
+        if not torch.isfinite(plain_logits).all() or rel > logits_tol:
+            fail(f"{arch}: prefill logits of the kernel path differ from the plain path: rel L2 {rel:.3g}, "
+                 f"tol {logits_tol:.3g}")
+
+        s12_k4[arch] = rows["flash_attention_fwd"]
+        if "selective_scan" in rows:
+            dec = {}
+
+            def record_k6(*args, **kw):  # the step's scan inputs, then the kernel (not counted: a timing setup)
+                dec.setdefault("args", tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args))
+                return k6._launch(*args, **kw)
+
+            caches12 = amodel.init_cache(bsz, prefix + plen + 1)
+            amodel.prefill(prompts12, caches12, ext12, schedule=ares.table)
+            with mock.patch.object(k6, "selective_scan", record_k6):
+                amodel.decode_step(ares.tokens[0, :, 0].to(dev), caches12, prefix + plen, schedule=ares.table)
+            xd, dtd, bd, cd, ad, dd, hd = dec["args"][:7]
+            del caches12
+            hbuf = hd.clone()
+            got_dec, want_dec = k6._launch(xd, dtd, bd, cd, ad, dd, hd, hbuf), k6.selective_scan_plain(
+                xd, dtd, bd, cd, ad, dd, hd)
+            err_dec = max(close_f32(got_dec[0], want_dec[0], "K6 y at decode"),
+                          close_f32(got_dec[1], want_dec[1], "K6 h at decode"))
+            s12_k6[arch] = {**rows["selective_scan"],
+                            "decode": {**k6_row_at(xd, dtd, bd, cd, ad, dd, hd, hbuf), "max_abs_err": err_dec}}
+            print_rows(arch, {"selective_scan at one decode step": s12_k6[arch]["decode"]})
+        if "moe_gemm_grouped" in rows:
+            s12_k1[arch] = rows["moe_gemm_grouped"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        slice12[arch] = {"layers": acfg.n_layers, "batch": bsz, "prompt": plen, "prefix": prefix, "new_tokens": new,
+                         "prefill_ms": ares.prefill_ms[0], "decode_ms_per_step": ares.decode_ms[0] / new,
+                         "peak_gb": peak_gb, "logits_rel_l2": rel, "noise_floor": floor,
+                         "serve_and_hold_s": serve_s}
+        print(f"{arch}: peak memory allocated {peak_gb:.2f} GB, serve and hold {serve_s:.1f} s ({card})")
+
+    for arch, keep, bsz, plen, new in SLICE12:
+        slice12_config(arch, keep, bsz, plen, new)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s wall ({card})")
+
+    # 13. the kernels line, then the result line
     path_launches = {
         name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
                **{f"serve_{arch}": arch_launches[arch][name] for arch in ARCHS}, "wire_codecs": wire_launches[name],
                "knee": knee_launches[name], "train": train_launches[name], "train_loop": loop_launches[name],
                "rwkv_serve": rwkv_launches[name], "rwkv_long_500k": long_launches[name],
-               "rwkv_train": rwkv_train_launches[name]}
+               "rwkv_train": rwkv_train_launches[name], "slice12": slice12_launches[name]}
         for name in COUNTED
     }
     kernels = [
@@ -2343,7 +2594,7 @@ def main() -> None:
             launches_by_path=path_launches["moe_gemm_grouped"],
             **{key: k1_rows["prefill"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")},
             shape=k1_rows["prefill"]["shape"], decode=k1_rows["decode"], knee=knee, wire_codecs=wire_out,
-            **{arch: arch_rows[arch]["moe_gemm_grouped"] for arch in ARCHS},
+            **{arch: arch_rows[arch]["moe_gemm_grouped"] for arch in ARCHS}, **s12_k1,
         ),
         dict(
             name="flash_attention_fwd", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -2353,7 +2604,7 @@ def main() -> None:
             **{key: k4_row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             shape=k4_row["shape"],
             **{key: k4_row[key] for key in K4_EXTRA_KEYS + ("model_call_max_abs_err",)},
-            **{arch: arch_rows[arch]["flash_attention_fwd"] for arch in ARCHS},
+            **{arch: arch_rows[arch]["flash_attention_fwd"] for arch in ARCHS}, **s12_k4,
         ),
         *(
             dict(
@@ -2387,6 +2638,12 @@ def main() -> None:
             replaces="src/repro/models/rwkv.py:99", launches=sum(path_launches["wkv6_bwd"].values()),
             launches_by_path=path_launches["wkv6_bwd"], **k5b_row, rwkv_train=rwkv_train_row,
         ),
+        dict(
+            name="selective_scan", route="cuda", source="src/repro_torch/csrc/mamba_scan.cu",
+            # port-side: the JAX model runs the recurrence as a lax.scan (_scan_ssm; no Pallas kernel)
+            replaces="src/repro/models/mamba.py:66", launches=sum(path_launches["selective_scan"].values()),
+            launches_by_path=path_launches["selective_scan"], **s12_k6["jamba-1.5-large-398b"],
+        ),
     ]
     # this slice's new numbers, each on its own line beside the card
     for key in K4_EXTRA_KEYS:
@@ -2396,6 +2653,8 @@ def main() -> None:
             print(f"K{2 if name == 'dgrad' else 3} launch_ms {launch}: {ms} ({card})")
     for key in ("launch_library_ms", "launch_bound_ms"):
         print(f"K2 dgrad {key}: {k23_rows['dgrad'][key]} ({card})")
+    for arch, row in slice12.items():
+        print(f"phase 12 {arch}: {json.dumps(row)} ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -1,6 +1,5 @@
-"""Architecture registry: importing this package registers the configs.
-
-Mixtral-8x7B, Qwen3-MoE-235B-A22B, DBRX-132B and RWKV6-7B are ported so far; ``smoke_config`` gives the reduced
+"""Architecture registry: importing this package registers the configs,
+all eleven of the JAX package's; ``smoke_config`` gives the reduced
 same-family variant the CPU tests run (same rule as ``repro.configs``).
 """
 
@@ -8,12 +7,25 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ARCHS, ModelConfig, MoECfg, get_config, register
-from repro_torch.configs import dbrx_132b, mixtral_8x7b, qwen3_moe_235b, rwkv6_7b  # noqa: F401  (registers)
+from repro_torch.configs.base import ARCHS, HybridCfg, ModelConfig, MoECfg, get_config, register
+from repro_torch.configs import (  # noqa: F401  (registers)
+    dbrx_132b,
+    granite_3_8b,
+    granite_34b,
+    h2o_danube_3_4b,
+    internvl2_26b,
+    jamba_1_5_large,
+    mixtral_8x7b,
+    musicgen_large,
+    qwen2_1_5b,
+    qwen3_moe_235b,
+    rwkv6_7b,
+)
 
 
 def smoke_config(cfg: ModelConfig | str) -> ModelConfig:
-    """Tiny widths and depth, same layer pattern, GQA ratio and top-k."""
+    """Tiny widths and depth (two periods), same layer pattern, GQA ratio,
+    window, top-k, hybrid interleave and frontend (4 prefix tokens)."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     kv = max(1, cfg.n_kv_heads * 4 // cfg.n_heads)
@@ -25,11 +37,10 @@ def smoke_config(cfg: ModelConfig | str) -> ModelConfig:
             top_k=min(moe.top_k, 2),
             d_ff_expert=64,
         )
-    period = cfg.moe.every if cfg.moe is not None else 1
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",
-        n_layers=2 * period,
+        n_layers=2 * cfg.period,
         d_model=64,
         n_heads=4,
         n_kv_heads=kv,
@@ -39,8 +50,9 @@ def smoke_config(cfg: ModelConfig | str) -> ModelConfig:
         sliding_window=8 if cfg.sliding_window else None,
         moe=moe,
         rwkv_head_dim=16,
+        frontend_tokens=4 if cfg.frontend != "none" else 0,
         remat="none",
     )
 
 
-__all__ = ["ARCHS", "ModelConfig", "MoECfg", "get_config", "register", "smoke_config"]
+__all__ = ["ARCHS", "HybridCfg", "ModelConfig", "MoECfg", "get_config", "register", "smoke_config"]

@@ -1,8 +1,8 @@
 """Model configuration dataclasses + the architecture registry.
 
-The fields of ``repro/configs/base.py`` that serving and training read, plus the
-architecture switches ``models.model.check_supported`` rejects until
-their slice is ported.
+The fields of ``repro/configs/base.py`` that serving and training read;
+``models.model.check_supported`` names the combinations the port does
+not run.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-__all__ = ["MoECfg", "ModelConfig", "register", "get_config", "ARCHS"]
+__all__ = ["MoECfg", "HybridCfg", "ModelConfig", "register", "get_config", "ARCHS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +33,18 @@ class MoECfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridCfg:
+    """Jamba-style interleave: one attention layer per ``period`` layers,
+    the rest Mamba."""
+
+    period: int = 8
+    attn_index: int = 0  # which layer within the period is attention
+    d_state: int = 16
+    conv_width: int = 4
+    expand: int = 2  # d_inner = expand * d_model
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: Literal["dense", "moe", "hybrid", "ssm", "vlm", "audio"]
@@ -49,8 +61,10 @@ class ModelConfig:
     pos_embedding: Literal["rope", "sinusoidal"] = "rope"
     block: Literal["attn", "rwkv6"] = "attn"
     moe: MoECfg | None = None
-    hybrid: object | None = None
+    hybrid: HybridCfg | None = None
+    # modality frontend stub: ``frontend_tokens`` precomputed embeddings prepended to the tokens
     frontend: Literal["none", "patch", "frames"] = "none"
+    frontend_tokens: int = 0
     ffn_gelu: bool = False
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -66,8 +80,9 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def layer_kind(self, idx: int) -> str:
-        """'attn' | 'rwkv6' for layer idx (the port has no hybrid interleave;
-        ``models.model.check_supported`` rejects ``hybrid``)."""
+        """'attn' | 'mamba' | 'rwkv6' for layer idx."""
+        if self.hybrid is not None:
+            return "attn" if idx % self.hybrid.period == self.hybrid.attn_index else "mamba"
         return self.block
 
     def ffn_kind(self, idx: int) -> str:
@@ -75,6 +90,19 @@ class ModelConfig:
         if self.moe is not None and idx % self.moe.every == self.moe.every - 1:
             return "moe"
         return "dense"
+
+    @property
+    def period(self) -> int:
+        """The repeating layer pattern's length: the JAX package stacks each
+        period position's parameters over ``n_periods``."""
+        if self.hybrid is not None:
+            return self.hybrid.period
+        return self.moe.every if self.moe is not None else 1
+
+    @property
+    def n_periods(self) -> int:
+        assert self.n_layers % self.period == 0, (self.n_layers, self.period)
+        return self.n_layers // self.period
 
     @property
     def n_moe_layers(self) -> int:

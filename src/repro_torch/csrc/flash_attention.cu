@@ -41,9 +41,12 @@
 //   refilled once every consumer warp has released it on `empty`.  Where a
 //   block's two passes together need no more KV tiles than the ring holds (the
 //   prefill shape), each tile is loaded once and both passes read it.  Rows
-//   past Skv and columns past D zero-fill (a head size below 64 is held as a
-//   64-wide tile: the zero columns add nothing to Q K^T, and o's columns past
-//   D are not stored).
+//   past Skv and columns past D zero-fill: a head size D (a multiple of 8 up
+//   to 128) is held as a tile of DP = 64 or 128 columns, each row's 16-byte
+//   copies stopping at column D, so a load never reads into the next head of
+//   a [B, S, H, D] view (h2o-danube's D = 120); the zero columns add nothing
+//   to Q K^T, o's columns past D are not stored, and the scale is the
+//   caller's, from the true D.
 // - Each consumer loads and scales its head's Q rows itself (both roundings
 //   in registers), requested before the KV tiles so they arrive first, and
 //   stores them swizzled for wgmma.  No producer warp: at the prefill shape
@@ -97,10 +100,10 @@ constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TURN = 3;  // named barriers TURN, TURN + 1 order the warpgroups' S products (1, 2: Q stores)
 
-template <int D, int HPB>
+template <int DP_, int HPB>
 struct Tiles {
   static constexpr int PASSES = HPB == 2 ? 2 : 1;     // HPB = 2: two q tiles per block, a long and a short one
-  static constexpr int DP = D < BOX ? BOX : D;        // columns held: D, at least one 64-column box
+  static constexpr int DP = DP_;                      // columns held: D rounded up to whole 64-column boxes
   static constexpr int NBOX = DP / BOX;
   static constexpr int Q_BYTES = NBOX * TILE_BYTES;   // one head's [64, DP] Q tile
   static constexpr int KV_BYTES = NBOX * TILE_BYTES;  // a [64, DP] K or V tile
@@ -120,7 +123,7 @@ struct Args {
   const bf16* v;
   bf16* o;
   Strides sq, sk, sv, so;
-  int H, KH, Sq, Skv, causal, window;  // window < 0: none
+  int H, KH, Sq, Skv, D, causal, window;  // window < 0: none; D <= DP, a multiple of 8
   float s1, s2;                        // q is read as bf16(bf16(q * s1) * s2)
 };
 
@@ -138,8 +141,9 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // Rows [r0, r0 + 64) of one (b, head) of a [.., S, D] view (row stride rs)
 // into the swizzled [64, DP] tile at shared address `dst`, thread t of nt
 // copying its share; rows past S and columns past D are zeros.
-template <int D, int DP>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, long long rs, int r0, int S, int t, int nt) {
+template <int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, long long rs, int r0, int S, int D, int t,
+                                          int nt) {
   constexpr int CH = DP / 8;  // 16-byte chunks per row
   for (int i = t; i < 64 * CH; i += nt) {
     const int r = i / CH, c = (i % CH) * 8;
@@ -244,9 +248,10 @@ __device__ __forceinline__ Span span_of(const Args& a, int qt) {
   return sp;
 }
 
-template <int D, int HPB>
-__global__ void __launch_bounds__(Tiles<D, HPB>::THREADS, 1) k4_flash_fwd_kernel(const Args a) {
-  typedef Tiles<D, HPB> T;
+template <int DP, int HPB>
+__global__ void __launch_bounds__(Tiles<DP, HPB>::THREADS, 1) k4_flash_fwd_kernel(const Args a) {
+  typedef Tiles<DP, HPB> T;
+  const int D = a.D;
   const int n_qt = (a.Sq + BQ - 1) / BQ, b = blockIdx.z;
   const int h0 = blockIdx.y * HPB, kh = h0 / (a.H / a.KH);
   // the block's q tiles, one per pass, the one with the most KV tiles first:
@@ -279,8 +284,8 @@ __global__ void __launch_bounds__(Tiles<D, HPB>::THREADS, 1) k4_flash_fwd_kernel
   };
   auto load_kv = [&](int s, int k0) {  // this thread's share of the KV tile at key k0 into stage s, on full[s]
     const uint32_t st = smem_u32(ring + s * T::STAGE_BYTES);
-    load_tile<D, T::DP>(st, a.k + b * a.sk.b + kh * a.sk.h, a.sk.s, k0, a.Skv, threadIdx.x, T::THREADS);
-    load_tile<D, T::DP>(st + T::KV_BYTES, a.v + b * a.sv.b + kh * a.sv.h, a.sv.s, k0, a.Skv, threadIdx.x, T::THREADS);
+    load_tile<T::DP>(st, a.k + b * a.sk.b + kh * a.sk.h, a.sk.s, k0, a.Skv, D, threadIdx.x, T::THREADS);
+    load_tile<T::DP>(st + T::KV_BYTES, a.v + b * a.sv.b + kh * a.sv.h, a.sv.s, k0, a.Skv, D, threadIdx.x, T::THREADS);
     cp_async_arrive(&full[s]);
   };
 
@@ -439,31 +444,26 @@ __global__ void __launch_bounds__(Tiles<D, HPB>::THREADS, 1) k4_flash_fwd_kernel
   K4_STAMP(31, "globaltimer");
 }
 
-template <int D, int HPB>
+template <int DP, int HPB>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  typedef Tiles<D, HPB> T;
+  typedef Tiles<DP, HPB> T;
   static bool smem_set = false;
-  const cudaError_t err = allow_smem(k4_flash_fwd_kernel<D, HPB>, T::SMEM, smem_set);
+  const cudaError_t err = allow_smem(k4_flash_fwd_kernel<DP, HPB>, T::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (a.Sq + BQ - 1) / BQ;
-  k4_flash_fwd_kernel<D, HPB><<<dim3((n_qt + T::PASSES - 1) / T::PASSES, a.H / HPB, B), T::THREADS, T::SMEM, stream>>>(a);
+  k4_flash_fwd_kernel<DP, HPB><<<dim3((n_qt + T::PASSES - 1) / T::PASSES, a.H / HPB, B), T::THREADS, T::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int HPB>
-int launch_d(const Args& a, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<16, HPB>(a, B, stream);
-    case 32: return launch<32, HPB>(a, B, stream);
-    case 64: return launch<64, HPB>(a, B, stream);
-    case 128: return launch<128, HPB>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_d(const Args& a, int B, cudaStream_t stream) {
+  return a.D <= BOX ? launch<BOX, HPB>(a, B, stream) : launch<2 * BOX, HPB>(a, B, stream);
 }
 
 }  // namespace
 
-// q/o [B, H, Sq, D], k/v [B, KH, Skv, D] bf16 with a unit stride in D;
+// q/o [B, H, Sq, D], k/v [B, KH, Skv, D] bf16 with a unit stride in D, D a
+// multiple of 8 from 8 to 128;
 // strides holds the element strides (b, h, s) of q, k, v and o, in that
 // order; q, k, v start 16-byte aligned with strides that are multiples of 8
 // elements.  q is read as bf16(bf16(q * s1) * s2).  window < 0 means none.
@@ -471,13 +471,14 @@ int launch_d(const Args& a, int B, int D, cudaStream_t stream) {
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, const long long* strides,
                                    int B, int H, int KH, int Sq, int Skv, int D, int causal, int window, float s1,
                                    float s2, void* stream) {
-  if (B <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 || D < 8 || D > 128 || D % 8)
+    return (int)cudaErrorInvalidValue;
   const long long* st = strides;
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
                static_cast<bf16*>(o), {st[0], st[1], st[2]}, {st[3], st[4], st[5]}, {st[6], st[7], st[8]},
-               {st[9], st[10], st[11]}, H, KH, Sq, Skv, causal, window, s1, s2};
+               {st[9], st[10], st[11]}, H, KH, Sq, Skv, D, causal, window, s1, s2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (H / KH) % 2 ? launch_d<1>(a, B, D, s) : launch_d<2>(a, B, D, s);
+  return (H / KH) % 2 ? launch_d<1>(a, B, s) : launch_d<2>(a, B, s);
 }
 
 #ifdef K4_PHASES

@@ -6,7 +6,8 @@ wrapper it first scales q by ``D**-0.5`` in q's own dtype (after
 ``prescale``, also rounded to q's dtype, when one is given); query row i
 sits at absolute position ``i + Skv - Sq`` and query head h reads kv head
 ``h // (H // K)``.  On a CUDA tensor it launches
-``csrc/flash_attention.cu`` (bf16, D in 16/32/64/128), which reads q, k
+``csrc/flash_attention.cu`` (bf16, D a multiple of 8 up to 128: 120 for
+h2o-danube), which reads q, k
 and v in place through their strides and scales q in its load with the
 same roundings, or raises; on a CPU tensor it runs
 ``flash_attention_plain``, which rounds where the kernel does (p to
@@ -82,7 +83,7 @@ def _layout(q_shape, kv_shape, q_strides, k_strides, v_strides, o_strides):
     (b, h, sq, d), kh = q_shape, kv_shape[1]
     if tuple(kv_shape) != (b, kh, kv_shape[2], d):
         raise ValueError(f"flash_attention kernel: k and v must be [{b}, K, Skv, {d}], got {tuple(kv_shape)}")
-    if d not in (16, 32, 64, 128) or h % kh:
+    if d % 8 or not 8 <= d <= 128 or h % kh:
         raise ValueError(f"flash_attention kernel: unsupported D={d}, H={h}, K={kh}")
     for name, shape, strides in (("q", q_shape, q_strides), ("k", kv_shape, k_strides), ("v", kv_shape, v_strides)):
         if not _strides_readable(shape, strides, 2):

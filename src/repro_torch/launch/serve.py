@@ -14,8 +14,11 @@ shrinks (``table_rebuilds``).  The estimate for round ``r`` is
 ``tokens * scenario.expert_probs(r)`` broadcast to ``[L, 1, E]`` with
 ``tokens = batch * prompt_len * top_k``, as the JAX launcher feeds its
 controller (an estimate, not realized routing).  An arch without MoE
-(``rwkv6-7b``) plans no table: the controller is disabled, as the JAX
-launcher's is, and the MoE counts stay 0.  Counterpart of
+(``rwkv6-7b`` and the dense configs) plans no table: the controller is
+disabled, as the JAX launcher's is, and the MoE counts stay 0; the hybrid
+(``jamba-1.5-large-398b``) plans one row per MoE layer.  An arch with a
+modality frontend gets ``frontend_tokens`` precomputed embeddings a
+prompt, N(0, 1) from the round's generator, prepended to its tokens.  Counterpart of
 ``repro/launch/serve.py``.
 """
 
@@ -119,10 +122,13 @@ def serve(
         schedule = table if use_table else None
         gen = torch.Generator(device=device).manual_seed(seed + r)
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=device)
-        caches = model.init_cache(batch, prompt_len + new_tokens)
+        prefix = cfg.frontend_tokens if cfg.frontend != "none" else 0
+        ext = None if not prefix else torch.randn(
+            (batch, prefix, cfg.d_model), generator=gen, device=device).to(model.dtype)
+        caches = model.init_cache(batch, prefix + prompt_len + new_tokens)
         _sync(device)
         t0 = time.perf_counter()
-        logits, caches, stats = model.prefill(prompts, caches, schedule=schedule, collect_stats=True)
+        logits, caches, stats = model.prefill(prompts, caches, ext, schedule=schedule, collect_stats=True)
         _sync(device)
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
         step_stats = [stats]
@@ -133,7 +139,7 @@ def serve(
         t0 = time.perf_counter()
         for i in range(new_tokens):
             logits, caches, stats = model.decode_step(
-                token, caches, prompt_len + i, schedule=schedule, collect_stats=True
+                token, caches, prefix + prompt_len + i, schedule=schedule, collect_stats=True
             )
             token = torch.argmax(logits, dim=-1)
             out.append(token)

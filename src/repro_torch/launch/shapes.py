@@ -10,9 +10,9 @@ LM transformer shapes (per assignment):
 
 ``input_specs`` returns tensors on the ``meta`` device: shapes and dtypes
 only, no storage (PyTorch's counterpart of ``jax.ShapeDtypeStruct``).
-No ported config has a modality frontend, so no spec carries the
-precomputed embeddings (``ext_embeds``) the JAX package adds for one.
-Where a cell is only described, as here, no
+A config with a modality frontend takes ``frontend_tokens`` of the
+sequence as precomputed embeddings (``ext_embeds``, bf16) in the train
+and prefill cells, and the rest as tokens.  Where a cell is only described, as here, no
 524288-token prompt is prefilled: the decode cell is one new token
 against a cache of ``seq_len``.  Counterpart of ``repro/launch/shapes.py``.
 """
@@ -62,9 +62,12 @@ def input_specs(cfg: ModelConfig, cell: Cell) -> dict:
     """Meta-device stand-ins for every model input of this cell."""
     b, s = cell.global_batch, cell.seq_len
     if cell.mode in ("train", "prefill"):
-        out = {"tokens": _spec((b, s), torch.int32)}
+        s_tok = s - cfg.frontend_tokens
+        out = {"tokens": _spec((b, s_tok), torch.int32)}
         if cell.mode == "train":
-            out["targets"] = _spec((b, s), torch.int32)
+            out["targets"] = _spec((b, s_tok), torch.int32)
+        if cfg.frontend != "none":
+            out["ext_embeds"] = _spec((b, cfg.frontend_tokens, cfg.d_model), torch.bfloat16)
         return out
     # decode: one new token against a seq_len cache
     return {"token": _spec((b,), torch.int32), "step": _spec((), torch.int32)}

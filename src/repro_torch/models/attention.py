@@ -1,4 +1,6 @@
-"""Attention: GQA with RoPE, prefill through the flash kernel (K4),
+"""Attention: GQA/MQA/MHA with RoPE (or none, where the model adds
+sinusoidal positions to its embeddings), optional QKV bias and sliding
+window, prefill through the flash kernel (K4),
 one-token decode against the KV cache, and the training path
 (``attn_train``: full masked attention, or the chunked online softmax
 beyond 2 * CHUNK tokens, in plain PyTorch with autograd).
@@ -6,7 +8,14 @@ beyond 2 * CHUNK tokens, in plain PyTorch with autograd).
 The KV cache of one layer is ``{"k", "v": [B, slots, K, D], "pos":
 [B, slots]}`` (``pos`` is the absolute position held in a slot, -1 when
 empty).  Unlike the JAX package, which returns new cache arrays, the port
-writes the cache in place and returns the same dict.  Counterpart of
+writes the cache in place and returns the same dict.  A sliding-window
+arch's cache is a ring of ``slots`` positions: position p lives in slot
+``p % slots``, in prefill and decode alike, so a decode step overwrites
+the oldest position.  (The JAX prefill keeps the last ``slots`` positions
+in slots ``0..slots-1`` instead, so after a prompt with ``S % slots != 0``
+its first decode step evicts a position still inside the window; the port
+differs from it there, and agrees wherever ``S <= slots`` or
+``S % slots == 0``.)  Counterpart of
 ``repro/models/attention.py``; prefill always runs K4, whatever
 ``repro.models.attention.USE_PALLAS_FLASH`` says.
 """
@@ -33,7 +42,9 @@ CHUNK = 512  # JAX attn_train switches to its chunked path beyond 2 * CHUNK toke
 
 
 class Attention(nn.Module):
-    """q/k/v/o projections, [d_in, d_out] each, in the storage dtype."""
+    """q/k/v/o projections, [d_in, d_out] each, in the storage dtype, and
+    with ``qkv_bias`` the q/k/v biases (zeros, as JAX inits them; cast at
+    use like the weights)."""
 
     def __init__(self, cfg: ModelConfig, *, gen, device, dtype):
         super().__init__()
@@ -43,6 +54,12 @@ class Attention(nn.Module):
         self.k = normal_param((d, cfg.n_kv_heads * hd), d**-0.5, **kw)
         self.v = normal_param((d, cfg.n_kv_heads * hd), d**-0.5, **kw)
         self.o = normal_param((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5, **kw)
+        if cfg.qkv_bias:
+            for name, width in (("q_bias", cfg.n_heads * hd), ("k_bias", cfg.n_kv_heads * hd),
+                                ("v_bias", cfg.n_kv_heads * hd)):
+                setattr(self, name, nn.Parameter(torch.zeros(width, dtype=dtype, device=device), requires_grad=False))
+        else:
+            self.q_bias = self.k_bias = self.v_bias = None
 
 
 def attn_init(cfg: ModelConfig, *, gen, device, dtype) -> Attention:
@@ -64,11 +81,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat
 def _qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(x, p.q).reshape(b, s, cfg.n_heads, hd)
-    k = dense(x, p.k).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(x, p.v).reshape(b, s, cfg.n_kv_heads, hd)
-    q = rope(q, positions, theta=cfg.rope_theta)
-    k = rope(k, positions, theta=cfg.rope_theta)
+    q = dense(x, p.q, p.q_bias).reshape(b, s, cfg.n_heads, hd)
+    k = dense(x, p.k, p.k_bias).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(x, p.v, p.v_bias).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.pos_embedding == "rope":
+        q = rope(q, positions, theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
     return q * (hd**-0.5), k, v
 
 
@@ -178,11 +196,12 @@ def attn_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     y, (k, v, positions) = attn_flash(p, cfg, x)
     b, s = x.shape[:2]
     slots = cache["k"].shape[1]
-    if s >= slots:  # keep the last ``slots`` positions
+    if s >= slots:  # keep the last ``slots`` positions, position p in slot p % slots
         start = s - slots
-        cache["k"].copy_(k[:, start:])
-        cache["v"].copy_(v[:, start:])
-        cache["pos"].copy_(positions[:, start:].expand(b, slots))
+        at = torch.arange(start, s, device=x.device) % slots
+        cache["k"][:, at] = k[:, start:].to(cache["k"].dtype)
+        cache["v"][:, at] = v[:, start:].to(cache["v"].dtype)
+        cache["pos"][:, at] = positions[:, start:].expand(b, slots)
     else:
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)

@@ -1,5 +1,5 @@
 """Core layers: device choice, parameter init, rmsnorm, groupnorm, dense,
-embed, rope.
+embed, rope, sinusoidal positions and the dense FFNs (SwiGLU, GELU MLP).
 
 The cast convention: the JAX package keeps f32 parameters and casts each
 weight to ``COMPUTE_DTYPE`` right before use.  The port stores those
@@ -15,6 +15,7 @@ compute dtype, norms and softmaxes in f32.  Counterpart of
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
@@ -27,6 +28,9 @@ __all__ = [
     "dense",
     "embed",
     "rope",
+    "sinusoidal_pos",
+    "SwiGLU",
+    "GeluMLP",
 ]
 
 
@@ -49,7 +53,7 @@ def normal_param(shape, scale: float, *, gen, device, dtype) -> nn.Parameter:
     if gen is None:
         w = torch.empty(shape, dtype=dtype, device=device)
     else:
-        w = (torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale).to(dtype)
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(scale).to(dtype)
     return nn.Parameter(w, requires_grad=False)
 
 
@@ -101,9 +105,12 @@ def groupnorm(x: torch.Tensor, scale, bias, *, groups: int, eps: float = 1e-5) -
     return (y.reshape(*lead, d) * scale + bias).to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with ``w`` [d_in, d_out] cast to x's (compute) dtype at use."""
-    return x @ w.to(x.dtype)
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w`` (+ ``b``) with ``w`` [d_in, d_out] and ``b`` [d_out] cast to
+    x's (compute) dtype at use; the bias is added in that dtype, as JAX's
+    ``dense_apply`` does."""
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(x.dtype)
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -122,3 +129,52 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10_000.0) -
     sin = torch.sin(angles)[..., :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, *, offset=0, dtype: torch.dtype, device) -> torch.Tensor:
+    """The classic sinusoidal position table [seq, d] (sin at even
+    columns, cos at odd), computed in f32 and cast to ``dtype``.
+    ``offset`` is an int or a [B] int tensor (each row at its own
+    position; the table is then [B, seq, d])."""
+    pos = torch.arange(seq, device=device)[:, None]
+    if isinstance(offset, torch.Tensor):
+        pos = pos[None] + offset.to(device=device, dtype=torch.int64)[:, None, None]  # [B, seq, 1]
+    else:
+        pos = pos + offset
+    dim = torch.arange(0, d, 2, device=device, dtype=torch.float32)
+    angle = pos.float() / torch.pow(torch.tensor(10_000.0, device=device), dim / d)
+    return torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1).flatten(-2).to(dtype)
+
+
+class SwiGLU(nn.Module):
+    """The dense SwiGLU FFN: w_gate, w_up [d, F] and w_down [F, d] in the
+    storage dtype (JAX ``swiglu_init``)."""
+
+    def __init__(self, d: int, d_ff: int, *, gen, device, dtype):
+        super().__init__()
+        kw = dict(gen=gen, device=device, dtype=dtype)
+        self.w_gate = normal_param((d, d_ff), d**-0.5, **kw)
+        self.w_up = normal_param((d, d_ff), d**-0.5, **kw)
+        self.w_down = normal_param((d_ff, d), d_ff**-0.5, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """silu(x W_gate) in f32, rounded to x's dtype, times x W_up, then W_down."""
+        h = F.silu(dense(x, self.w_gate).float()).to(x.dtype) * dense(x, self.w_up)
+        return dense(h, self.w_down)
+
+
+class GeluMLP(nn.Module):
+    """The 2-matrix GELU MLP (GPT-BigCode, granite-34b): w_up [d, F] and
+    w_down [F, d] in the storage dtype (JAX ``gelu_mlp_init``)."""
+
+    def __init__(self, d: int, d_ff: int, *, gen, device, dtype):
+        super().__init__()
+        kw = dict(gen=gen, device=device, dtype=dtype)
+        self.w_up = normal_param((d, d_ff), d**-0.5, **kw)
+        self.w_down = normal_param((d_ff, d), d_ff**-0.5, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """GELU in f32 with the tanh approximation (``jax.nn.gelu``'s
+        default; PyTorch's default is the exact erf form), rounded to x's dtype."""
+        h = F.gelu(dense(x, self.w_up).float(), approximate="tanh").to(x.dtype)
+        return dense(h, self.w_down)

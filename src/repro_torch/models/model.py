@@ -9,7 +9,12 @@ weights JAX casts at use, so a trainer passes ``torch.float32`` masters
 and ``requires_grad=True``.  ``seed`` draws the parameters from a
 ``torch.Generator`` on that device with the JAX init's distributions
 (the numbers differ from JAX's); ``seed=None`` leaves them for
-``transplant.load_reference``.  Counterpart of ``repro/models/model.py``.
+``transplant.load_reference``.  With ``tie_embeddings`` there is no
+``head``: the logits are ``x @ table.T`` in f32, and the table is kept in
+f32 whatever the storage dtype, as JAX's ``unembed_apply`` reads it.  A
+modality frontend's precomputed embeddings (``ext_embeds`` [B, P, d]) are
+prepended to the token embeddings, and positions (RoPE or sinusoidal)
+run over the whole sequence.  Counterpart of ``repro/models/model.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import stack
-from repro_torch.models.layers import dense, embed, normal_param, ones_param, resolve_device, rmsnorm
+from repro_torch.models.layers import (
+    dense, embed, normal_param, ones_param, resolve_device, rmsnorm, sinusoidal_pos,
+)
 
 CE_CHUNKS = 8  # JAX Model._ce: sequence chunks of the cross-entropy
 
@@ -28,21 +35,21 @@ __all__ = ["Model", "check_supported"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs RoPE attention + MoE blocks (Mixtral's pattern) and
-    RWKV6 blocks without MoE."""
+    """The port runs attention (RoPE or sinusoidal positions, QKV bias,
+    sliding windows) and Mamba mixers (the hybrid interleave), each with an
+    MoE, SwiGLU or GELU FFN, and RWKV6 blocks without MoE, with tied or
+    separate embeddings and the patch/frames frontends: every config of the
+    JAX package.  It rejects the combinations the JAX package has no
+    config for."""
     rwkv = cfg.block == "rwkv6"
     unsupported = {
-        "dense FFN": cfg.moe is None and not rwkv,
         "moe with rwkv6": rwkv and cfg.moe is not None,
-        "block": cfg.block not in ("attn", "rwkv6") or cfg.hybrid is not None,
-        "pos_embedding": cfg.pos_embedding != "rope",
-        "qkv_bias": cfg.qkv_bias,
-        "frontend": cfg.frontend != "none",
-        "tie_embeddings": cfg.tie_embeddings,
+        "block": cfg.block not in ("attn", "rwkv6"),
+        "pos_embedding": cfg.pos_embedding not in ("rope", "sinusoidal"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(bad)} not ported yet (ROADMAP: other mixers)")
+        raise NotImplementedError(f"{cfg.name}: {', '.join(bad)}: no such config in the JAX package")
 
 
 class Model(nn.Module):
@@ -59,10 +66,11 @@ class Model(nn.Module):
         gen = None if seed is None else torch.Generator(device=self.device).manual_seed(seed)
         kw = dict(gen=gen, device=self.device, dtype=self.param_dtype)
         d = cfg.d_model
-        self.embed = normal_param((cfg.vocab_size, d), 0.02, **kw)
+        table_dtype = torch.float32 if cfg.tie_embeddings else self.param_dtype
+        self.embed = normal_param((cfg.vocab_size, d), 0.02, **{**kw, "dtype": table_dtype})
         self.layers = nn.ModuleList(stack.block_init(cfg, l, **kw) for l in range(cfg.n_layers))
         self.ln_f = ones_param(d, device=self.device)
-        self.head = normal_param((d, cfg.vocab_size), d**-0.5, **kw)
+        self.head = None if cfg.tie_embeddings else normal_param((d, cfg.vocab_size), d**-0.5, **kw)
         self.requires_grad_(requires_grad)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> list[dict]:
@@ -70,7 +78,20 @@ class Model(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.ln_f, eps=self.cfg.norm_eps)
+        if self.head is None:  # tied: f32 logits against the f32 table
+            return x.float() @ self.embed.float().T
         return dense(x, self.head).float()
+
+    def _embed(self, tokens: torch.Tensor, ext_embeds=None) -> torch.Tensor:
+        """Token embeddings [B, S, d] in the compute dtype, after the
+        frontend's ``ext_embeds`` [B, P, d] when given, plus sinusoidal
+        positions 0 .. P + S - 1 where the arch uses them."""
+        x = embed(self.embed, tokens, self.dtype)
+        if ext_embeds is not None:
+            x = torch.cat([ext_embeds.to(device=x.device, dtype=self.dtype), x], dim=1)
+        if self.cfg.pos_embedding == "sinusoidal":
+            x = x + sinusoidal_pos(x.shape[1], self.cfg.d_model, dtype=self.dtype, device=x.device)[None]
+        return x
 
     # ------------------------------------------------------------ training
     def reference_ranks(self) -> dict[str, int]:
@@ -85,29 +106,36 @@ class Model(nn.Module):
         top-level parameter.  Error-feedback compression takes one scale
         per group, as JAX takes one per leaf."""
         groups: dict[str, list[str]] = {}
+        period = self.cfg.period
         for n, _ in self.named_parameters():
-            key = "layers." + n.split(".", 2)[2] if n.startswith("layers.") else n
+            if n.startswith("layers."):
+                _, layer, attr = n.split(".", 2)
+                key = f"layers.pos{int(layer) % period}.{attr}"
+            else:
+                key = n
             groups.setdefault(key, []).append(n)
         return list(groups.values())
 
-    def _hidden(self, tokens, schedule, collect_stats):
-        x = embed(self.embed, tokens, self.dtype)
+    def _hidden(self, tokens, schedule, collect_stats, ext_embeds=None):
+        x = self._embed(tokens, ext_embeds)
         return stack.stack_train(self.layers, self.cfg, x, schedule, collect_stats=collect_stats)
 
-    def forward(self, tokens: torch.Tensor, *, schedule=None) -> torch.Tensor:
-        """Training/eval forward: full-sequence logits [B, S, V] (f32)."""
-        return self._logits(self._hidden(tokens, schedule, False))
+    def forward(self, tokens: torch.Tensor, ext_embeds=None, *, schedule=None) -> torch.Tensor:
+        """Training/eval forward: full-sequence logits [B, P + S, V] (f32)."""
+        return self._logits(self._hidden(tokens, schedule, False, ext_embeds))
 
     def loss(self, batch: dict, *, schedule=None) -> torch.Tensor:
         """Mean next-token cross-entropy over positions with targets >= 0
-        (``batch``: ``tokens`` / ``targets`` [B, S] int)."""
-        return self._ce(self._hidden(batch["tokens"], schedule, False), batch["targets"])
+        (``batch``: ``tokens`` / ``targets`` [B, S] int, and ``ext_embeds``
+        [B, P, d] for a frontend, whose positions carry no loss)."""
+        hidden = self._hidden(batch["tokens"], schedule, False, batch.get("ext_embeds"))
+        return self._ce(hidden, batch["targets"])
 
     def loss_and_stats(self, batch: dict, *, schedule=None):
         """``loss`` plus the per-layer MoE stats (``routing`` [L, 1, E],
         ``dropped`` / ``admitted`` [L, 1]); None for a model without MoE
         (RWKV6), as in JAX."""
-        hidden, stats = self._hidden(batch["tokens"], schedule, True)
+        hidden, stats = self._hidden(batch["tokens"], schedule, True, batch.get("ext_embeds"))
         return self._ce(hidden, batch["targets"]), stats
 
     def _ce_chunk(self, h_c, t_c):
@@ -121,7 +149,12 @@ class Model(nn.Module):
     def _ce(self, hidden, targets) -> torch.Tensor:
         """The JAX ``_ce``: the sequence in ``CE_CHUNKS`` chunks (one when S
         does not divide), each chunk's logits recomputed in the backward
-        instead of kept, summed in chunk order in f32."""
+        instead of kept, summed in chunk order in f32.  A frontend prefix
+        (hidden longer than targets) takes target -1: no loss."""
+        if hidden.shape[1] != targets.shape[1]:
+            pad = hidden.shape[1] - targets.shape[1]
+            targets = torch.cat([torch.full((targets.shape[0], pad), -1, dtype=targets.dtype,
+                                            device=targets.device), targets], dim=1)
         s = hidden.shape[1]
         nc = CE_CHUNKS if s % CE_CHUNKS == 0 else 1
         sc = s // nc
@@ -137,12 +170,15 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------- serving
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, caches: list[dict], *, schedule=None, collect_stats=False):
-        """Process prompts [B, S], filling ``caches`` in place.  Returns
-        (last-token logits [B, V] f32, caches), plus the per-layer MoE
-        stats (``routing`` [L, 1, E], ``dropped`` / ``admitted`` [L, 1];
-        None for a model without MoE) with ``collect_stats``."""
-        x = embed(self.embed, tokens, self.dtype)
+    def prefill(self, tokens: torch.Tensor, caches: list[dict], ext_embeds=None, *, schedule=None,
+                collect_stats=False):
+        """Process prompts [B, S] (after ``ext_embeds`` [B, P, d] for a
+        frontend), filling ``caches`` in place; decoding then starts at
+        position P + S.  Returns (last-token logits [B, V] f32, caches),
+        plus the per-layer MoE stats (``routing`` [L, 1, E], ``dropped`` /
+        ``admitted`` [L, 1]; None for a model without MoE) with
+        ``collect_stats``."""
+        x = self._embed(tokens, ext_embeds)
         stats = []
         for p, cache, row in zip(self.layers, caches, stack.schedule_rows(schedule, self.cfg)):
             x, _, st = stack.block_prefill(p, self.cfg, x, cache, row, collect_stats=collect_stats)
@@ -164,6 +200,9 @@ class Model(nn.Module):
         demand.  Returns (logits [B, V] f32, caches) (+ stats, as
         ``prefill``)."""
         x = embed(self.embed, token[:, None], self.dtype)
+        if self.cfg.pos_embedding == "sinusoidal":  # [1, d] at step, or [B, 1, d] at each row's step
+            pe = sinusoidal_pos(1, self.cfg.d_model, offset=step, dtype=self.dtype, device=x.device)
+            x = x + (pe if isinstance(step, torch.Tensor) else pe[None])
         token_weight = None if live is None else live.to(torch.float32)[:, None]
         stats = []
         for p, cache, row in zip(self.layers, caches, stack.schedule_rows(schedule, self.cfg)):

@@ -4,10 +4,14 @@ stack checkpoints each block under ``cfg.remat == "block"``
 (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of a period),
 so the backward recomputes the block's forward, K1 (or K5) included.
 
-Two block kinds are ported, chosen by ``cfg.layer_kind(j)``: attention +
-MoE/SwiGLU (Mixtral's pattern) and RWKV6 (time mix + channel mix, whose
-per-layer decode state is the dict of ``rwkv.rwkv_init_state``).
-Counterpart of ``repro/models/stack.py``.
+Three mixers are ported, chosen by ``cfg.layer_kind(j)``: attention and
+Mamba, each followed by an FFN chosen by ``cfg.ffn_kind(j)`` (the MoE
+layer, the dense SwiGLU or, under ``ffn_gelu``, the GELU MLP), and RWKV6
+(time mix + channel mix).  A layer's decode state is a dict: the KV cache
+of ``attention.init_cache``, Mamba's ``{"h", "tail"}`` or RWKV6's
+``rwkv.rwkv_init_state``.  Training runs attention and RWKV6 blocks; a
+Mamba block waits for K6's backward.  Counterpart of
+``repro/models/stack.py``.
 """
 
 from __future__ import annotations
@@ -19,9 +23,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.schedule import ScheduleTable
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv
-from repro_torch.models.layers import ones_param, rmsnorm
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models import mamba, rwkv
+from repro_torch.models.layers import GeluMLP, SwiGLU, ones_param, rmsnorm
+from repro_torch.models.moe import MoE, moe_apply, moe_init
 
 __all__ = [
     "Block", "block_init", "block_train", "block_prefill", "block_decode", "stack_train", "stack_cache",
@@ -30,22 +34,27 @@ __all__ = [
 
 
 class Block(nn.Module):
-    """``ln1``, ``mixer`` and ``ln2``, plus ``ffn`` for an attention block;
-    an rwkv6 block's channel mix lives in its mixer."""
+    """``ln1``, ``mixer`` and ``ln2``, plus ``ffn`` for an attention or a
+    Mamba block (MoE, SwiGLU or GELU MLP); an rwkv6 block's channel mix
+    lives in its mixer."""
 
     def __init__(self, cfg: ModelConfig, j: int, *, gen, device, dtype):
         super().__init__()
         self.kind = cfg.layer_kind(j)
+        kw = dict(gen=gen, device=device, dtype=dtype)
         self.ln1 = ones_param(cfg.d_model, device=device)
         if self.kind == "rwkv6":
-            self.mixer = rwkv.RWKV(cfg, gen=gen, device=device, dtype=dtype)
+            self.mixer = rwkv.RWKV(cfg, **kw)
             self.ln2 = ones_param(cfg.d_model, device=device)
             return
-        if cfg.ffn_kind(j) != "moe":
-            raise NotImplementedError("dense-FFN blocks are not ported yet (ROADMAP: other mixers)")
-        self.mixer = attn.attn_init(cfg, gen=gen, device=device, dtype=dtype)
+        self.mixer = attn.attn_init(cfg, **kw) if self.kind == "attn" else mamba.Mamba(cfg, **kw)
         self.ln2 = ones_param(cfg.d_model, device=device)
-        self.ffn = moe_init(cfg, gen=gen, device=device, dtype=dtype)
+        if cfg.ffn_kind(j) == "moe":
+            self.ffn = moe_init(cfg, **kw)
+        elif cfg.ffn_gelu:
+            self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, **kw)
+        else:
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
 
 def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype) -> Block:
@@ -54,7 +63,12 @@ def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype) -> Block:
 
 def block_train(p: Block, cfg: ModelConfig, x, schedule, *, collect_stats=False):
     """One training layer over x [B, S, d].  Returns (x, stats-or-None);
-    an rwkv6 layer (time mix from S = 0, then channel mix) has no stats."""
+    an rwkv6 layer (time mix from S = 0, then channel mix) and a dense FFN
+    have no stats."""
+    if p.kind == "mamba":
+        raise NotImplementedError(
+            "training through a Mamba block needs K6's backward kernel (ROADMAP §1: Jamba training)"
+        )
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
     if p.kind == "rwkv6":
         y, _ = rwkv.rwkv_time_mix(p.mixer, cfg, h)
@@ -90,7 +104,11 @@ def block_prefill(p: Block, cfg: ModelConfig, x, cache: dict, schedule, *, colle
     if p.kind == "rwkv6":
         y, (x_tm, s) = rwkv.rwkv_time_mix(p.mixer, cfg, h)
         return _rwkv_channel(p, cfg, x + y, cache, x_tm, s, None)
-    y, cache = attn.attn_prefill(p.mixer, cfg, h, cache)
+    if p.kind == "mamba":  # the scan writes the final state into the cache's own tensor
+        y, (_, tail) = mamba.mamba_seq(p.mixer, cfg, h, h_out=cache["h"])
+        cache["tail"].copy_(tail)
+    else:
+        y, cache = attn.attn_prefill(p.mixer, cfg, h, cache)
     x = x + y
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
     x, stats = _ffn(p, cfg, x, h, schedule, collect_stats)
@@ -100,14 +118,17 @@ def block_prefill(p: Block, cfg: ModelConfig, x, cache: dict, schedule, *, colle
 def block_decode(p: Block, cfg: ModelConfig, x, cache: dict, step, schedule, *, collect_stats=False,
                  token_weight=None):
     """One decode layer, updating ``cache`` in place.  ``step`` is an int
-    or a [B] per-slot position tensor (``attn.attn_decode``; an rwkv6 layer
-    ignores it); ``token_weight`` ([B, 1] f32) weights the MoE routing
+    or a [B] per-slot position tensor (``attn.attn_decode``; rwkv6 and Mamba
+    layers ignore it); ``token_weight`` ([B, 1] f32) weights the MoE routing
     counts only.  Returns (x, cache, stats-or-None)."""
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
     if p.kind == "rwkv6":
         y, (x_tm, s) = rwkv.rwkv_time_mix(p.mixer, cfg, h, state=(cache["x_tm"].to(h.dtype), cache["s"]))
         return _rwkv_channel(p, cfg, x + y, cache, x_tm, s, cache["x_cm"])
-    y, cache = attn.attn_decode(p.mixer, cfg, h, cache, step)
+    if p.kind == "mamba":
+        y, cache = mamba.mamba_step(p.mixer, cfg, h, cache)
+    else:
+        y, cache = attn.attn_decode(p.mixer, cfg, h, cache, step)
     x = x + y
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
     x, stats = _ffn(p, cfg, x, h, schedule, collect_stats, token_weight)
@@ -128,6 +149,8 @@ def _rwkv_channel(p: Block, cfg, x, cache: dict, x_tm, s, x_cm_last):
 
 
 def _ffn(p: Block, cfg, x, h, schedule, collect_stats, token_weight=None):
+    if not isinstance(p.ffn, MoE):
+        return x + p.ffn(h), None
     if collect_stats:
         y, stats = moe_apply(p.ffn, cfg, h, schedule=schedule, return_stats=True, token_weight=token_weight)
         return x + y, stats
@@ -136,9 +159,10 @@ def _ffn(p: Block, cfg, x, h, schedule, collect_stats, token_weight=None):
 
 def stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16, device) -> list[dict]:
     """One cache dict per layer: a KV cache for attention, the O(1) decode
-    state for rwkv6."""
+    state for rwkv6 and Mamba."""
+    states = {"rwkv6": rwkv.rwkv_init_state, "mamba": mamba.mamba_init_state}
     return [
-        rwkv.rwkv_init_state(cfg, batch, dtype=dtype, device=device) if cfg.layer_kind(j) == "rwkv6"
+        states[cfg.layer_kind(j)](cfg, batch, dtype=dtype, device=device) if cfg.layer_kind(j) in states
         else attn.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
         for j in range(cfg.n_layers)
     ]
@@ -146,8 +170,10 @@ def stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloa
 
 def moe_rows(cfg: ModelConfig) -> list[int | None]:
     """The table row of each layer: the MoE layers take rows 0, 1, ... in
-    layer order (JAX lays its rows out as [period, MoE position in the
-    period], ``moe_positions``: the same order), a non-MoE layer None."""
+    layer order, a non-MoE layer None.  JAX lays its rows out as [period,
+    MoE position in the period] (``_schedule_rows``): row p * m + i for the
+    i-th MoE layer of period p, with m MoE layers a period, which is the
+    same order (Jamba: layers 1, 3, 5, 7 of each 8 take rows 4 p + 0..3)."""
     rows, n = [], 0
     for l in range(cfg.n_layers):
         rows.append(n if cfg.ffn_kind(l) == "moe" else None)

@@ -3,14 +3,17 @@
 
 PyTorch cannot replay ``jax.random``, so parity runs load the JAX
 package's parameters.  The pytree is numpy arrays, ``{"embed":
-{"table"}, "head": {"w"}, "ln_f": {"scale"}, "stack": {"pos0": {...}}}``
-with block leaves stacked over ``n_periods`` (one block per period: the
-port's two block kinds, Mixtral's attention + MoE and RWKV6, each have
-one).  ``load_reference`` stores the weights JAX casts before use in
+{"table"}, "head": {"w"} (absent with tied embeddings), "ln_f":
+{"scale"}, "stack": {"pos0": {...}, ..., "pos{period-1}": {...}}}``,
+each period position's block leaves stacked over ``n_periods``: leaf
+``stack/pos{j}`` [n_periods, ...] holds layer ``p * period + j`` at
+index p (one position for Mixtral and RWKV6, eight for Jamba).
+``load_reference`` stores the weights JAX casts before use in
 ``param_dtype`` (default: the compute dtype; ``torch.float32`` for
-training masters); the router, the norm scales and RWKV6's mixes, LoRA
-weights, decay base and bonus stay f32.  Every key is consumed; a
-leftover raises.
+training masters); the router, the norm scales, a tied embedding table,
+Mamba's ``a_log`` / ``dt_bias`` / ``d_skip`` and RWKV6's mixes, LoRA
+weights, decay base and bonus stay f32.  Every key is consumed and every
+port parameter set; a leftover on either side raises.
 ``to_reference`` rebuilds that pytree from a model's parameters, or
 from their gradients, so tests compare leaf by leaf.
 """
@@ -26,37 +29,56 @@ from repro_torch.models.model import Model
 
 __all__ = ["load_reference", "to_reference"]
 
-# block kind -> port attribute path -> (JAX pytree path inside one block, keep f32?)
-_BLOCK_LEAVES = {
+# module kind -> port attribute -> JAX pytree path inside the module (the
+# port module fixes each parameter's dtype: the storage dtype or f32)
+_MIXER_LEAVES = {
     "attn": {
-        "ln1": (("ln1", "scale"), True),
-        "ln2": (("ln2", "scale"), True),
-        "mixer.q": (("mixer", "q", "w"), False),
-        "mixer.k": (("mixer", "k", "w"), False),
-        "mixer.v": (("mixer", "v", "w"), False),
-        "mixer.o": (("mixer", "o", "w"), False),
-        "ffn.router": (("ffn", "router", "w"), True),
-        "ffn.w_gate": (("ffn", "w_gate"), False),
-        "ffn.w_up": (("ffn", "w_up"), False),
-        "ffn.w_down": (("ffn", "w_down"), False),
+        **{n: (n, "w") for n in ("q", "k", "v", "o")},
+        **{f"{n}_bias": (n, "b") for n in ("q", "k", "v")},
+    },
+    "mamba": {
+        **{n: (n, "w") for n in ("in_proj", "x_proj", "dt_proj", "out_proj")},
+        **{n: (n,) for n in ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip")},
     },
     "rwkv6": {
-        "ln1": (("ln1", "scale"), True),
-        "ln2": (("ln2", "scale"), True),
-        **{
-            f"mixer.{n}": (("mixer", n), True)
-            for n in ("mu", "mix_w1", "mix_w2", "w0", "decay_w1", "decay_w2", "u", "cm_mu_k", "cm_mu_r")
-        },
-        "mixer.ln_x_scale": (("mixer", "ln_x", "scale"), True),
-        "mixer.ln_x_bias": (("mixer", "ln_x", "bias"), True),
-        **{f"mixer.{n}": (("mixer", n, "w"), False) for n in rwkv.DENSE},
+        **{n: (n,) for n in ("mu", "mix_w1", "mix_w2", "w0", "decay_w1", "decay_w2", "u", "cm_mu_k", "cm_mu_r")},
+        "ln_x_scale": ("ln_x", "scale"),
+        "ln_x_bias": ("ln_x", "bias"),
+        **{n: (n, "w") for n in rwkv.DENSE},
     },
 }
-_TOP_LEAVES = {
-    "embed": (("embed", "table"), False),
-    "head": (("head", "w"), False),
-    "ln_f": (("ln_f", "scale"), True),
+_FFN_LEAVES = {
+    "moe": {
+        "router": ("router", "w"),
+        **{n: (n,) for n in ("w_gate", "w_up", "w_down")},
+    },
+    "swiglu": {n: (n, "w") for n in ("w_gate", "w_up", "w_down")},
+    "gelu": {n: (n, "w") for n in ("w_up", "w_down")},
 }
+# the attribute that tells a module kind apart, in the order they are tried
+_MIXER_MARK = {"attn": "mixer.q", "mamba": "mixer.in_proj", "rwkv6": "mixer.wr"}
+_FFN_MARK = {"moe": "ffn.router", "swiglu": "ffn.w_gate", "gelu": "ffn.w_up"}
+
+
+def _top_leaves(names) -> dict:
+    out = {"embed": ("embed", "table"), "ln_f": ("ln_f", "scale")}
+    if "head" in names:
+        out["head"] = ("head", "w")
+    return out
+
+
+def _block_leaves(names) -> dict:
+    """Port attribute (``ln1``, ``mixer.q``, ...) -> JAX path inside one
+    block, for a block with the parameter names ``names``."""
+    mixer = next((k for k, mark in _MIXER_MARK.items() if mark in names), None)
+    if mixer is None:
+        raise ValueError(f"a block whose parameters {sorted(names)} match no ported mixer")
+    out = {"ln1": ("ln1", "scale"), "ln2": ("ln2", "scale")}
+    out.update({f"mixer.{a}": ("mixer",) + path for a, path in _MIXER_LEAVES[mixer].items()})
+    ffn = next((k for k, mark in _FFN_MARK.items() if mark in names), None)
+    if ffn is not None:
+        out.update({f"ffn.{a}": ("ffn",) + path for a, path in _FFN_LEAVES[ffn].items()})
+    return {a: v for a, v in out.items() if a in names}
 
 
 def _flatten(tree, prefix=()) -> dict[tuple, np.ndarray]:
@@ -74,29 +96,38 @@ def load_reference(
 ) -> Model:
     """A ``Model`` holding the JAX parameters ``tree`` (numpy leaves)."""
     model = Model(cfg, device=device, dtype=dtype, param_dtype=param_dtype, seed=None, requires_grad=requires_grad)
-    stored = model.param_dtype
     leaves = _flatten(tree)
-    if cfg.moe is not None and cfg.moe.every != 1:
-        raise NotImplementedError("transplant covers one block per period (Mixtral, RWKV6)")
+    used, unset = set(), {n for n, _ in model.named_parameters()}
 
-    def put(param: torch.nn.Parameter, arr: np.ndarray, keep_f32: bool, name: str):
+    def take(path: tuple) -> np.ndarray:
+        if path not in leaves:
+            raise ValueError(f"reference leaf {'/'.join(path)} missing")
+        used.add(path)
+        return leaves[path]
+
+    def put(name: str, arr: np.ndarray, what: str):
+        param = model.get_parameter(name)
         if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: reference {arr.shape} vs port {tuple(param.shape)}")
-        t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-        param.data.copy_(t.to(torch.float32 if keep_f32 else stored))
+            raise ValueError(f"{what}: reference {arr.shape} vs port {tuple(param.shape)}")
+        param.data.copy_(torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)).to(param.dtype))
+        unset.discard(name)
 
-    for attr, (path, keep) in _TOP_LEAVES.items():
-        put(getattr(model, attr), leaves.pop(path), keep, "/".join(path))
-    for attr, (path, keep) in _BLOCK_LEAVES[cfg.layer_kind(0)].items():
-        full = ("stack", "pos0") + path
-        stacked = leaves.pop(full)
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"{'/'.join(full)}: {stacked.shape[0]} layers, config has {cfg.n_layers}")
-        for l, block in enumerate(model.layers):
-            param = block.get_parameter(attr)
-            put(param, stacked[l], keep, "/".join(full) + f"[{l}]")
-    if leaves:
-        raise ValueError(f"unconsumed reference leaves: {sorted('/'.join(k) for k in leaves)}")
+    names = {n for n, _ in model.named_parameters()}
+    for attr, path in _top_leaves(names).items():
+        put(attr, take(path), "/".join(path))
+    period, n_periods = cfg.period, cfg.n_periods
+    for l, block in enumerate(model.layers):
+        p, j = divmod(l, period)
+        for attr, path in _block_leaves({n for n, _ in block.named_parameters()}).items():
+            full = ("stack", f"pos{j}") + path
+            stacked = take(full)
+            if stacked.shape[0] != n_periods:
+                raise ValueError(f"{'/'.join(full)}: {stacked.shape[0]} periods, config has {n_periods}")
+            put(f"layers.{l}.{attr}", stacked[p], "/".join(full) + f"[{p}]")
+    if set(leaves) - used:
+        raise ValueError(f"unconsumed reference leaves: {sorted('/'.join(k) for k in set(leaves) - used)}")
+    if unset:
+        raise ValueError(f"port parameters with no reference leaf: {sorted(unset)}")
     return model
 
 
@@ -106,28 +137,29 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def to_reference(model_or_grads) -> dict:
+def to_reference(model_or_grads, cfg: ModelConfig | None = None) -> dict:
     """The JAX pytree layout (numpy f32 leaves) of a ``Model``'s parameters
     or of a ``{name: tensor}`` dict keyed like ``model.named_parameters()``
-    (e.g. their gradients).  Block leaves are stacked over layers."""
+    (e.g. their gradients; ``cfg`` gives the period, default 1).  Block
+    leaves are stacked over periods."""
     if isinstance(model_or_grads, Model):
-        named = dict(model_or_grads.named_parameters())
+        named, cfg = dict(model_or_grads.named_parameters()), model_or_grads.cfg
     else:
         named = dict(model_or_grads)
+    period = 1 if cfg is None else cfg.period
 
     def arr(name):
         return named.pop(name).detach().float().cpu().numpy()
 
     tree: dict = {}
-    for attr, (path, _) in _TOP_LEAVES.items():
+    for attr, path in _top_leaves(named).items():
         _set(tree, path, arr(attr))
     n_layers = 1 + max(int(k.split(".")[1]) for k in named if k.startswith("layers."))
-    # the block kind whose leaves layer 0 holds
-    block = next((b for b in _BLOCK_LEAVES.values() if all(f"layers.0.{attr}" in named for attr in b)), None)
-    if block is None:
-        raise ValueError("layer 0's parameters match no ported block kind")
-    for attr, (path, _) in block.items():
-        _set(tree, ("stack", "pos0") + path, np.stack([arr(f"layers.{l}.{attr}") for l in range(n_layers)]))
+    for j in range(period):
+        layers = range(j, n_layers, period)
+        block = _block_leaves({k.split(".", 2)[2] for k in named if k.startswith(f"layers.{j}.")})
+        for attr, path in block.items():
+            _set(tree, ("stack", f"pos{j}") + path, np.stack([arr(f"layers.{l}.{attr}") for l in layers]))
     if named:
         raise ValueError(f"parameters with no reference leaf: {sorted(named)}")
     return tree

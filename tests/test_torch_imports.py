@@ -54,7 +54,10 @@ def test_every_module_is_found():
         "repro_torch.checkpoint.manager", "repro_torch.optim.compression", "repro_torch.train.loop",
         "repro_torch.core.cost_models", "repro_torch.core.baselines", "repro_torch.core.simulator",
         "repro_torch.parallel.fabric.codec", "repro_torch.launch.simulate", "repro_torch.configs.qwen3_moe_235b",
-        "repro_torch.configs.dbrx_132b",
+        "repro_torch.configs.dbrx_132b", "repro_torch.kernels.mamba_scan.ops", "repro_torch.models.mamba",
+        "repro_torch.configs.granite_34b", "repro_torch.configs.granite_3_8b", "repro_torch.configs.h2o_danube_3_4b",
+        "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.internvl2_26b", "repro_torch.configs.musicgen_large",
+        "repro_torch.configs.jamba_1_5_large",
     ):
         assert expected in names
 

@@ -1,6 +1,6 @@
 """The CUDA kernels K1, K2/K3 (its backward), K3b (ungrouped), K4, K5
-(the WKV6 recurrence) and K5b (its backward) against their plain PyTorch
-versions on the card,
+(the WKV6 recurrence), K5b (its backward) and K6 (the Mamba selective
+scan) against their plain PyTorch versions on the card,
 at small and ragged shapes.  Skips without a CUDA device.  Run on
 the machine with the card:
 
@@ -8,7 +8,8 @@ the machine with the card:
 
 Tolerance 2e-2 (bf16): kernel and plain version both accumulate in f32,
 in another order, so a bf16 rounding of h, p or the output can differ by
-an ulp.  The weight gradients (K3) are held by relative L2 (2e-3) and a
+an ulp.  K4 at head dim 120 is also held to a relative L2 of 3e-3 over
+each (b, head), which a window edge moved by a tile exceeds.  The weight gradients (K3) are held by relative L2 (2e-3) and a
 max error of 2e-2 * max|plain|: kernel and plain version each round
 their own f32 da/du/h to bf16, a few tenths of a percent of those land
 one ulp apart, and one such element times a large x moves a single
@@ -16,7 +17,9 @@ weight gradient by more than the elementwise bound.  K5 computes in f32
 on both sides (bf16 r/k/v are widened first): 1e-4, for the order of
 the 64-term sums.  K5b too, in f32 on both sides: each gradient within
 1e-3 relative L2 and 1e-3 * max|plain| (sums over T and over 64 terms in
-another order).
+another order).  K6 is f32 on both sides (bf16 x widened first): 1e-4
+relative to max|plain|, for the order of the 16-term sums and the
+exponential's rounding.
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import attention_mask, flash_attention, flash_attention_plain, kernel_readable
 from repro_torch.kernels.flash_attention.ops import _launch as k4_launch
+from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_plain
 from repro_torch.kernels.rwkv_wkv import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain
 from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops
 from repro_torch.kernels.moe_gemm import (
@@ -41,6 +45,7 @@ from repro_torch.kernels.moe_gemm import (
 )
 
 TOL = dict(rtol=2e-2, atol=2e-2)
+K4_REL_L2 = 3e-3  # K4 vs plain, relative L2 over each (b, head): chip_smoke.py's limit
 
 
 def _close_l2(got, want, rel=2e-3, max_rel=2e-2):
@@ -323,7 +328,7 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     w = torch.zeros((2, 64, 64), device=cuda_device)
     with pytest.raises(ValueError, match="bf16"):
         moe_gemm(x, w, w, w, torch.ones((2, 8), dtype=torch.bool, device=cuda_device))
-    q = torch.zeros((1, 2, 8, 48), dtype=torch.bfloat16, device=cuda_device)  # D=48 not built
+    q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16, device=cuda_device)  # D=20: not a multiple of 8
     with pytest.raises(ValueError, match="unsupported"):
         flash_attention(q, q, q)
 
@@ -561,3 +566,97 @@ def test_stream_handle_is_the_current_stream(cuda_device):
     side.synchronize()
     assert build.stream_handle(dev) == torch.cuda.current_stream(dev).cuda_stream
     torch.testing.assert_close(out.float(), flash_attention_plain(q * 64**-0.5, k, v, causal=True).float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("h,kh,sq", [(8, 2, 150), (6, 2, 300), (4, 1, 70)])
+def test_k4_kernel_at_head_dim_120_on_card(cuda_device, h, kh, sq, window):
+    """h2o-danube's D = 120 in the model's [B, S, H, D] views, transposed:
+    a 128-column tile whose loads stop at column 120 (the next head's
+    columns sit right after), the pre-scaled q undone with the true D, and
+    only 120 columns stored; with and without a window."""
+    d = 120
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (2, sq, h, d), 1.0, cuda_device).transpose(1, 2) * d**-0.5
+    k, v = (_randn(rng, (2, sq, kh, d), 1.0, cuda_device).transpose(1, 2) for _ in range(2))
+    assert all(kernel_readable(t) for t in (q, k, v))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window, prescale=d**0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.shape == (2, h, sq, d)
+    ref = flash_attention_plain((q * d**0.5) * d**-0.5, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    o, r = out.float().flatten(2), ref.float().flatten(2)
+    assert ((o - r).norm(dim=-1) / r.norm(dim=-1)).max().item() <= K4_REL_L2
+
+
+def _scan_inputs(rng, b, s, di, ds, x_dtype, device, carried):
+    x = torch.from_numpy(rng.standard_normal((b, s, di)).astype(np.float32)).to(device, x_dtype)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.5, (b, s, di)).astype(np.float32)).to(device)
+    bm, cm = (torch.from_numpy(rng.standard_normal((b, s, ds)).astype(np.float32)).to(device) for _ in range(2))
+    a = -torch.from_numpy(rng.uniform(0.5, 16, (di, ds)).astype(np.float32)).to(device)
+    d_skip = torch.from_numpy(rng.standard_normal(di).astype(np.float32)).to(device)
+    h0 = torch.from_numpy(rng.standard_normal((b, di, ds)).astype(np.float32)).to(device) if carried else None
+    return x, dt, bm, cm, a, d_skip, h0
+
+
+def _scan_close(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,s,di,ds,carried",
+    [
+        (2, 1, 256, 16, True),  # decode: one step from a carried state
+        (2, 37, 200, 16, False),  # ragged channels (a partial block) and a partial chunk
+        (1, 64, 128, 16, True),  # two whole chunks
+        (3, 70, 384, 7, True),  # fewer states than the registers hold
+    ],
+)
+def test_k6_kernel_matches_plain_on_card(cuda_device, x_dtype, b, s, di, ds, carried):
+    rng = np.random.default_rng(13)
+    args = _scan_inputs(rng, b, s, di, ds, x_dtype, cuda_device, carried)
+    before = selective_scan.launches
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    want_y, want_h = selective_scan_plain(*args)
+    assert y.shape == (b, s, di) and h.shape == (b, di, ds) and y.dtype == h.dtype == torch.float32
+    _scan_close(y, want_y)
+    _scan_close(h, want_h)
+
+
+@pytest.mark.cuda
+def test_k6_kernel_writes_the_state_in_place_on_card(cuda_device):
+    """A decode step passes the cache's state as h0 and h_out: the kernel
+    updates that tensor, and eight such steps equal one eight-step scan."""
+    rng = np.random.default_rng(14)
+    x, dt, bm, cm, a, d_skip, h0 = _scan_inputs(rng, 2, 8, 256, 16, torch.bfloat16, cuda_device, True)
+    state = h0.clone()
+    ptr = state.data_ptr()
+    ys = []
+    for t in range(8):
+        y, h = selective_scan(x[:, t:t + 1], dt[:, t:t + 1], bm[:, t:t + 1], cm[:, t:t + 1], a, d_skip, state, state)
+        assert h is state and state.data_ptr() == ptr
+        ys.append(y)
+    want_y, want_h = selective_scan_plain(x, dt, bm, cm, a, d_skip, h0)
+    _scan_close(torch.cat(ys, dim=1), want_y)
+    _scan_close(state, want_h)
+
+
+@pytest.mark.cuda
+def test_k6_kernel_rejects_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(15)
+    x, dt, bm, cm, a, d_skip, _ = _scan_inputs(rng, 1, 4, 64, 16, torch.bfloat16, cuda_device, False)
+    before = selective_scan.launches
+    with pytest.raises(ValueError, match="ds="):
+        selective_scan(x, dt, torch.zeros((1, 4, 17), device=cuda_device), cm, torch.zeros((64, 17), device=cuda_device),
+                       d_skip)
+    with pytest.raises(ValueError, match="dt must be f32"):
+        selective_scan(x, dt.to(torch.bfloat16), bm, cm, a, d_skip)
+    assert selective_scan.launches == before

@@ -36,10 +36,11 @@ def test_cell_applicable_equals_jax(arch, cell):
 
 
 def test_long_500k_applies_to_rwkv_only():
-    """RWKV6's O(1) decode state runs the 500k-token cell; the attention MoE configs are excluded."""
+    """The sub-quadratic configs run the 500k-token cell: RWKV6's and Jamba's O(1) decode states and
+    h2o-danube's window-bounded cache; the full-attention configs are excluded."""
     long = shapes.CELLS["long_500k"]
     assert {arch: shapes.cell_applicable(get_config(arch), long)[0] for arch in PORTED} == {
-        arch: arch == "rwkv6-7b" for arch in PORTED
+        arch: arch in ("rwkv6-7b", "h2o-danube-3-4b", "jamba-1.5-large-398b") for arch in PORTED
     }
 
 
