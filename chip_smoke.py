@@ -163,12 +163,14 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    time beside its bound (14 D^2 f32 FLOP per step and head), the plain
    version's and K5's forward on the same inputs;
 10b. the ``long_500k`` cell (``launch/shapes.py``) on the same 32-layer
-   model: ``cell_applicable`` for every ported config (True for rwkv6-7b
-   alone), the cache of ``init_cache(1, 524288)`` in the bytes of
-   ``init_cache(1, 1024)``, then a 1024-token prompt at batch 1 and 16
-   one-token decode steps at step 524287 + i in ``input_specs``' shapes,
-   with ms a step and exact K5 launches (the cell is never prefilled at
-   524288 tokens);
+   model: ``cell_applicable`` for every ported config (True for the
+   ``subquadratic`` ones), then ``long_cell``: the RWKV state of
+   ``init_cache(1, 524288)`` in the bytes of ``init_cache(1, 1024)``, a
+   1024-token prompt at batch 1 prefilled once with K5 held against its
+   plain version in every layer (the logits equal to the counted
+   prefill's bit for bit), then 16 one-token decode steps at step
+   524287 + i in ``input_specs``' shapes, with ms a step and exact K5
+   launches (the cell is never prefilled at 524288 tokens);
 11. train full-width RWKV6-7B: a train step at 1 layer, kernel path (K5,
    K5b) against the plain path (loss within 2e-2 relative, each gradient
    leaf within 2e-2 relative L2, K5 twice and K5b once); then 4 of 32
@@ -203,19 +205,61 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    that runs each, beside their plain versions and bounds (K6's the
    largest of bytes, f32 FLOPs and
    exponentials at 16 a clock an SM); each config's serving times, peak
-   memory and the phase's wall time.
+   memory and the phase's wall time;
+12b. (inside 12, on Jamba's and h2o-danube's models before they are
+   freed) the model behind ``ServeEngine`` (``ENGINE_KW``: 8 slots,
+   buckets 64/128/256, under h2o-danube's 4096 window; Jamba's device
+   controller on, none for the dense config), 3 phases of 8 requests at
+   once with prompts in all three buckets: every request completes, one
+   decode graph serves the run, the replay equals the eager step on copies
+   bit for bit at the first 2 steps of each phase, with K6 and K1 held
+   against their plain versions in every layer of those eager steps; the
+   first batch-1 prefill of each bucket run again with K4, K6 and K1 held
+   in every layer must give the served row bit for bit; K4 (attention
+   layers x prefills), K6 and K1 (Mamba / MoE layers x (prefills + decode
+   steps + the capture's warm-up)) launch exactly, K6 and K1 among the
+   capture's launches (at decode they run inside the replay);
+10c. (inside 12, after 12b on the same models) the ``long_500k`` cell
+   through 10b's ``long_cell``: h2o-danube's ``init_cache(1, 524288)`` in the bytes of
+   ``init_cache(1, 4096)`` (the ring holds the window; the 1024-token
+   prompt lies outside the window at 524287, so each step sees only the
+   decoded tokens, which is what ``attn_full`` computes there), Jamba's
+   Mamba state O(1) and its one attention layer at 524288 positions
+   (printed), then a 1024-token prompt at batch 1 and 16 steps at
+   524287 + i (Jamba's at 524272 + i, so they stay inside the cell's
+   524288 positions, which its attention cache holds) with exact K4, K6
+   and K1 launches, the prefill once more with K4, K6 and K1 held in every
+   layer (its logits equal to the counted prefill's bit for bit);
+13. training (``TRAIN13``): Jamba-1.5-Large cut to layer 0 (Mamba and the
+   dense SwiGLU, 2.1 B parameters) and qwen2-1.5b at all 28 layers, each
+   through ``launch/train.py``'s ``train`` at batch 4 x 1024 for 8 AdamW
+   steps (f32 masters, bf16 compute, remat per block): losses finite and
+   the mean of the last two below step 0's, peak memory under 80 GB, K6
+   2 x Mamba layers x steps and K6b Mamba layers x steps (every other
+   kernel 0); before Jamba's run, one train step of the kernel path (K6,
+   K6b) against the plain path (loss within 2e-2 relative, each leaf within
+   2e-2 relative L2), and K6b (``csrc/mamba_scan_bwd.cu``) held against
+   ``selective_scan_bwd_plain`` on the inputs of that step's scan backward
+   (each gradient within 1e-3 relative L2 and 1e-3 x max |plain|, two runs
+   equal bit for bit), timed as a CUDA graph replay beside its bound (the
+   function's least traffic, no checkpoints, or one exponential a state
+   and step) and this design's own traffic (checkpoints, partial sums), the
+   plain version and K6's forward with and without checkpoints; one more
+   step of each traced by kernel group.  Phases 11 and 13 share
+   ``train_step_vs_plain`` and ``train_and_check``.
 
 It prints K4's extra numbers and K2's/K3's per-launch times (with the
 dgrad launch's library time and bound) one a line beside the card's name
 and power limit, phase 12's numbers a config a line, a ``kernels`` JSON
-line (eight entries, K5b's and K6's ``replaces`` naming the scans the JAX
-model runs), then,
+line (nine entries, K5b's, K6's and K6b's ``replaces`` naming the scans
+the JAX model runs), then,
 last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before that line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -343,6 +387,18 @@ SLICE12 = (
     ("internvl2-26b", None, 4, 256, 8),
     ("musicgen-large", None, 4, 256, 8),
 )
+# phase 12b (the engine, ENGINE_KW) and 10c (the long_500k cell) run on these phase-12 models before they are
+# freed: ENGINE12_PHASES phases of 8 requests (prompts ENGINE_TRACE_PROMPTS, 8-16 new tokens), the replay held
+# against the eager step at the first ENGINE12_HELD decode steps of each
+SLICE12_ENGINE, ENGINE12_PHASES, ENGINE12_HELD = ("jamba-1.5-large-398b", "h2o-danube-3-4b"), 3, 2
+# phase 13: training the hybrid and a dense config at full width: Jamba-1.5-Large cut to layer 0 (Mamba and the
+# dense SwiGLU of F 24576, 2.1 B parameters: its MoE layer 1 alone holds 9.66 B expert parameters, which one card
+# cannot train with f32 masters and moments) and qwen2-1.5b at all 28 layers, each batch 4 x 1024, f32 masters,
+# bf16 compute, remat per block, AdamW, 8 steps
+TRAIN13 = (("jamba-1.5-large-398b", 1), ("qwen2-1.5b", None))
+TRAIN13_BATCH, TRAIN13_SEQ, TRAIN13_STEPS = 4, 1024, 8
+# K6b vs plain, each gradient in f32 on both sides: relative L2 and max |diff| / max |plain| (K5b's rule)
+SCAN_BWD_TOL = 1e-3
 # the special-function units' exponentials: 16 a clock an SM, 132 SMs, at the 1.98 GHz boost clock (H100 SXM)
 EXP_PER_S = 16 * 132 * 1.98e9
 
@@ -574,7 +630,7 @@ def main() -> None:
         "moe_gemm_grouped": k1.moe_gemm, "flash_attention_fwd": k4.flash_attention,
         "moe_gemm_grouped_dgrad": k1.moe_gemm_dgrad, "moe_gemm_grouped_wgrad": k1.moe_gemm_wgrad,
         "moe_gemm_ungrouped": k1.moe_gemm_ungrouped, "wkv6": k5.wkv6, "wkv6_bwd": k5.wkv6_bwd,
-        "selective_scan": k6.selective_scan,
+        "selective_scan": k6.selective_scan, "mamba_scan_bwd": k6.selective_scan_bwd,
     }
 
     def reset_counts():
@@ -587,6 +643,36 @@ def main() -> None:
     def rel_l2(a, b) -> float:
         a, b = a.float(), b.float()
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def counting_engine_steps(kinds: dict, comparing: list):
+        """``ServeEngine._step`` patched to count each call's launches in ``kinds`` by the call's kind: captured
+        (a replay launches what the capture recorded; replays do not pass the wrappers' counters), the
+        capture's warm-up step (a real decode step on copies), or a comparison (``comparing[0]`` set)."""
+        from repro_torch.serve import ServeEngine
+
+        real_step = ServeEngine._step
+
+        def counted_step(self, *args):
+            before = read_counts()
+            out = real_step(self, *args)
+            kind = "captured" if torch.cuda.is_current_stream_capturing() else (
+                "comparison" if comparing[0] else "warmup")
+            calls = kinds.setdefault(kind, {"calls": 0, **dict.fromkeys(COUNTED, 0)})
+            calls["calls"] += 1
+            for name, n in read_counts().items():
+                calls[name] += n - before[name]
+            return out
+
+        return mock.patch.object(ServeEngine, "_step", counted_step)
+
+    def engine_launches_of(kinds: dict, counted: dict, replays: int):
+        """The main path's launches of an engine run: the wrappers' counts, less the capture's (no launch) and
+        the comparisons', plus each replay's recorded launches; with the capture's and the warm-up's calls."""
+        captured = kinds.get("captured", dict.fromkeys(COUNTED, 0) | {"calls": 0})
+        warmup = kinds.get("warmup", dict.fromkeys(COUNTED, 0) | {"calls": 0})
+        comparison = kinds.get("comparison", dict.fromkeys(COUNTED, 0))
+        main_ = {name: counted[name] - captured[name] - comparison[name] + replays * captured[name] for name in COUNTED}
+        return main_, captured, warmup
 
     def train_loop_phase(tcfg) -> dict:
         """Phase 8b: ``train_loop`` on the card (checks and numbers in the module doc); returns its launches."""
@@ -1269,6 +1355,43 @@ def main() -> None:
         rel, med = max(k4_layer_rel)
         return f"rel L2 over a (b, head) {rel:.3g} (tol {K4_REL_L2}; median |plain| there {med:.3g})"
 
+    k6_layer_errs, k5_layer_errs = [], []
+
+    def held_k6(x, dt, bm, cm, a, d_skip, h0=None, h_out=None):
+        ref_y, ref_h = k6.selective_scan_plain(x, dt, bm, cm, a, d_skip, h0)  # before the kernel writes h_out
+        y, h = k6._launch(x, dt, bm, cm, a, d_skip, h0, h_out)  # a comparison launch: not counted
+        n = len(k6_layer_errs)
+        k6_layer_errs.append(max(close_f32(y, ref_y, f"K6 y in Mamba layer {n}"),
+                                 close_f32(h, ref_h, f"K6 h in Mamba layer {n}")))
+        return y, h
+
+    def held_k5(r, k, v, w, u, s0=None):
+        y, s_fin = k5._launch(r, k, v, w, u, s0)  # a comparison launch: not counted
+        y_ref, s_ref = k5.wkv6_plain(r, k, v, w, u, s0)
+        n = len(k5_layer_errs)
+        k5_layer_errs.append(max(close_f32(y, y_ref, f"K5 in layer {n} y"), close_f32(s_fin, s_ref, f"K5 in layer {n} S")))
+        return y, s_fin
+
+    held_kernels = {"K1": (k1, "moe_gemm", held_k1, k1_layer_errs), "K4": (k4, "flash_attention", held_k4, k4_layer_errs),
+                    "K6": (k6, "selective_scan", held_k6, k6_layer_errs), "K5": (k5, "wkv6", held_k5, k5_layer_errs)}
+
+    def kernels_held(what: str, fn, **expect):
+        """``fn()`` with K1, K4, K6 and K5 each held against its plain version on every call's own inputs
+        (comparison launches, not counted); fails unless each was held in ``expect[name]`` calls (0 where not
+        given).  Returns fn's result and each held kernel's largest max |kernel - plain|."""
+        for *_, errs in held_kernels.values():
+            errs.clear()
+        k4_layer_rel.clear()
+        with contextlib.ExitStack() as stack:
+            for mod, attr, held, _ in held_kernels.values():
+                stack.enter_context(mock.patch.object(mod, attr, held))
+            out = fn()
+        got = {name: len(errs) for name, (*_, errs) in held_kernels.items()}
+        want = {name: expect.get(name, 0) for name in held_kernels}
+        if got != want:
+            fail(f"{what}: kernels held in {got} calls, expected {want}")
+        return out, {name: max(errs) for name, (*_, errs) in held_kernels.items() if errs}
+
     ngen = torch.Generator(device=dev).manual_seed(4)
 
     def perturbed_k1(x, w_gate, w_up, w_down, row_valid):
@@ -1409,40 +1532,13 @@ def main() -> None:
         # a CPU twin of the controller, fed the routing the engine copies to the host, step for step
         twin, twin_state = DeviceController(ctrl.cfg, device="cpu"), eng._state.clone("cpu")
         fed: list = []
-        # each call of the step function, by kind: captured (a replay launches what the
-        # capture recorded; replays do not pass the wrappers' counters), the capture's
-        # warm-up step (a real decode step on copies), or a comparison (graph vs eager)
-        real_step, kinds, comparing = ServeEngine._step, {}, [False]
-
-        def counted_step(self, *args):
-            before = read_counts()
-            out = real_step(self, *args)
-            kind = "captured" if torch.cuda.is_current_stream_capturing() else (
-                "comparison" if comparing[0] else "warmup")
-            calls = kinds.setdefault(kind, {"calls": 0, **dict.fromkeys(COUNTED, 0)})
-            calls["calls"] += 1
-            for name, n in read_counts().items():
-                calls[name] += n - before[name]
-            return out
+        kinds, comparing = {}, [False]  # each call of the step function, by kind (counting_engine_steps)
 
         real_decode, real_prefill = eng._decode_once, eng._prefill_row
         steps, prefill_ms, held, first_fire_held = [], {}, [], [False]
         # K1 and K4 held against their plain versions at the shapes this path gives
         # them: batch-1 prefill per bucket, decode under the controller's tables
         k_held = {"prefill": {}, "decode": [], "after_cold": None}
-
-        def kernels_held(what: str, fn, k4_layers: int):
-            """``fn()`` with every layer's K1 (and K4 in ``k4_layers`` layers)
-            held against its plain version (comparison launches, not counted)."""
-            k1_layer_errs.clear()
-            k4_layer_errs.clear()
-            k4_layer_rel.clear()
-            with mock.patch.object(k1, "moe_gemm", held_k1), mock.patch.object(k4, "flash_attention", held_k4):
-                out = fn()
-            if len(k1_layer_errs) != LAYERS or len(k4_layer_errs) != k4_layers:
-                fail(f"engine {what}: K1 held in {len(k1_layer_errs)} and K4 in {len(k4_layer_errs)} layers, expected "
-                     f"{LAYERS} and {k4_layers}")
-            return out, (max(k1_layer_errs), max(k4_layer_errs, default=None))
 
         def held_decode():
             """Hold the replay against the eager step on copies (with K1 held in
@@ -1454,9 +1550,9 @@ def main() -> None:
             hold = not steps or steps[-1]["phase"] != phase[0] or not first_fire_held[0] or after_cold
             if hold:
                 comparing[0] = True
-                ref, errs = kernels_held(f"decode step {len(steps) + 1}", eng.step_on_copies, 0)
+                ref, errs = kernels_held(f"engine decode step {len(steps) + 1}", eng.step_on_copies, K1=LAYERS)
                 comparing[0] = False
-                k_held["decode"].append((len(steps) + 1, errs[0]))
+                k_held["decode"].append((len(steps) + 1, errs["K1"]))
                 if after_cold:
                     k_held["after_cold"] = len(steps) + 1
             t0 = time.perf_counter()
@@ -1487,8 +1583,9 @@ def main() -> None:
                 prefill_ms.setdefault(bucket, []).append((time.perf_counter() - t0) * 1e3)
             if plen > 0 and bucket not in k_held["prefill"]:
                 # the same prefill again with K1 and K4 held: it must also give the served row
-                again, k_held["prefill"][bucket] = kernels_held(
-                    f"prefill bucket {bucket}", lambda: real_prefill(req, bucket), LAYERS)
+                again, errs = kernels_held(f"engine prefill bucket {bucket}", lambda: real_prefill(req, bucket),
+                                           K1=LAYERS, K4=LAYERS)
+                k_held["prefill"][bucket] = (errs["K1"], errs["K4"])
                 if not all(torch.equal(a[key], b[key]) for a, b in zip(row, again[0]) for key in a):
                     fail(f"engine prefill bucket {bucket}: the row differs from the same prefill with K1 and K4 held")
             return row, plen
@@ -1496,7 +1593,7 @@ def main() -> None:
         eng._decode_once, eng._prefill_row = held_decode, timed_prefill
         phase, snaps = [None], {}
         reset_counts()
-        with mock.patch.object(ServeEngine, "_step", counted_step):
+        with counting_engine_steps(kinds, comparing):
             for name, pool in (("A", "A"), ("B", "B"), ("A2", "A")):
                 phase[0] = name
                 reqs = trace(pools[pool])
@@ -1558,14 +1655,9 @@ def main() -> None:
               f"max_abs_err {[(n, f'{v:.4g}') for n, v in k_held['decode']]}, step {k_held['after_cold']} the first "
               f"under a cold re-plan's table ({card})")
 
-        # launches of the main path: the wrappers' counts, less the capture's (no
-        # launch) and the comparisons', plus each replay's recorded launches
-        captured, warmup = kinds["captured"], kinds.get("warmup", dict.fromkeys(COUNTED, 0) | {"calls": 0})
-        comparison = kinds.get("comparison", dict.fromkeys(COUNTED, 0))
+        main, captured, warmup = engine_launches_of(kinds, counted, eng.graph_replays)
         if captured["calls"] != 1:
             fail(f"engine: {captured['calls']} captures")
-        main = {name: counted[name] - captured[name] - comparison[name] + eng.graph_replays * captured[name]
-                for name in COUNTED}
         n_prefill, n_decode = sum(len(v) for v in prefill_ms.values()), len(steps)
         expect = dict.fromkeys(COUNTED, 0)
         expect.update(moe_gemm_grouped=LAYERS * (n_prefill + n_decode + warmup["calls"]),
@@ -1708,16 +1800,6 @@ def main() -> None:
             "plain_ms": cuda_ms(lambda: k6.selective_scan_plain(x, dt, bm, cm, a, d_skip, h0), 2, warmup=1),
             "library_ms": None, **k6_cost(x, dt, bm, cm, a, d_skip, h0),
         }
-
-    k6_layer_errs = []
-
-    def held_k6(x, dt, bm, cm, a, d_skip, h0=None, h_out=None):
-        ref_y, ref_h = k6.selective_scan_plain(x, dt, bm, cm, a, d_skip, h0)  # before the kernel writes h_out
-        y, h = k6._launch(x, dt, bm, cm, a, d_skip, h0, h_out)  # a comparison launch: not counted
-        n = len(k6_layer_errs)
-        k6_layer_errs.append(max(close_f32(y, ref_y, f"K6 y in Mamba layer {n}"),
-                                 close_f32(h, ref_h, f"K6 h in Mamba layer {n}")))
-        return y, h
 
     def print_rows(arch, rows) -> None:
         for name, row in rows.items():
@@ -2288,21 +2370,11 @@ def main() -> None:
     def rwkv_prefill_logits(m):
         return m.prefill(rprompts, m.init_cache(RWKV_BATCH, RWKV_CHECK_PROMPT, m.dtype))[0].float()
 
-    layer_errs = []
-
-    def held_wkv6(r, k, v, w, u, s0=None):
-        y, s_fin = k5._launch(r, k, v, w, u, s0)  # a comparison launch: not counted
-        y_ref, s_ref = k5.wkv6_plain(r, k, v, w, u, s0)
-        n = len(layer_errs)
-        layer_errs.append(max(close_f32(y, y_ref, f"K5 in layer {n} y"), close_f32(s_fin, s_ref, f"K5 in layer {n} S")))
-        return y, s_fin
-
-    with mock.patch.object(k5, "wkv6", held_wkv6):
-        kernel_logits = rwkv_prefill_logits(rmodel)
-    if len(layer_errs) != rcfg.n_layers or not torch.isfinite(kernel_logits).all():
-        fail(f"RWKV bf16 prefill: K5 held in {len(layer_errs)} of {rcfg.n_layers} layers, or non-finite logits")
+    kernel_logits, errs = kernels_held("RWKV bf16 prefill", lambda: rwkv_prefill_logits(rmodel), K5=rcfg.n_layers)
+    if not torch.isfinite(kernel_logits).all():
+        fail("RWKV bf16 prefill: non-finite logits")
     print(f"K5 inside the {rcfg.n_layers}-layer bf16 prefill (prompt {RWKV_CHECK_PROMPT}), on each layer's own "
-          f"strided inputs: max_abs_err {max(layer_errs):.3g} (tol {WKV_TOL} + {WKV_TOL}*|plain|)")
+          f"strided inputs: max_abs_err {errs['K5']:.3g} (tol {WKV_TOL} + {WKV_TOL}*|plain|)")
     with mock.patch.object(k5, "wkv6", k5.wkv6_plain):
         plain_logits = rwkv_prefill_logits(rmodel)
     ngen = torch.Generator(device=dev).manual_seed(3)
@@ -2354,52 +2426,112 @@ def main() -> None:
     # 10b. the long_500k cell on the same 32-layer model: the cell applies to the subquadratic configs only,
     # the O(1) state of a 524288-token cache has the bytes of a 1024-token one, and after a 1024-token prompt
     # at batch 1 the cell's decode steps (one token at step 524287 + i, input_specs' shapes) run through K5
-    long_cell = shapes.CELLS["long_500k"]
-    applies = {arch: shapes.cell_applicable(get_config(arch), long_cell)[0] for arch in sorted(ARCH_REGISTRY)}
+    def long_cell(acfg, amodel, table, gen) -> tuple[dict, dict]:
+        """Phases 10b and 10c: the long_500k cell on a served model.  The cache of init_cache(1, 524288): a
+        recurrent state (RWKV, Mamba) is O(1), a sliding window's ring holds only the window, a full attention
+        layer holds every position.  A LONG_PROMPT-token prompt (drawn from ``gen``) at batch 1, prefilled once
+        with K4, K6, K1 and K5 held against their plain versions in every layer (its logits must equal the
+        counted prefill's bit for bit), then LONG_STEPS decode steps ending inside the cell with exact launches.
+        Returns the numbers and the launches."""
+        arch = acfg.name
+        long_cell_ = shapes.CELLS["long_500k"]
+        ok_, why = shapes.cell_applicable(acfg, long_cell_)
+        if not ok_:
+            fail(f"long_500k does not apply to {arch}: {why}")
+        kinds_ = [acfg.layer_kind(l) for l in range(acfg.n_layers)]
+        n_attn, n_mamba, n_rwkv = kinds_.count("attn"), kinds_.count("mamba"), kinds_.count("rwkv6")
+        n_moe = acfg.n_moe_layers
+        specs = shapes.input_specs(acfg, long_cell_)
+
+        def bytes_by_kind(caches) -> dict:
+            out = {}
+            for kind_, c in zip(kinds_, caches):
+                out[kind_] = out.get(kind_, 0) + sum(t.numel() * t.element_size() for t in c.values())
+            return out
+
+        long_caches = amodel.init_cache(long_cell_.global_batch, long_cell_.seq_len)
+        long_b = bytes_by_kind(long_caches)
+        row = {"cache_mb": {k: v / 1e6 for k, v in long_b.items()}}
+        print(f"long_500k {arch}: init_cache(1, {long_cell_.seq_len}) {sum(long_b.values()) / 1e6:.3f} MB by layer kind "
+              f"{ {k: round(v, 3) for k, v in row['cache_mb'].items()} }; input_specs "
+              f"{{{', '.join(f'{k}: {tuple(t.shape)} {t.dtype}' for k, t in specs.items())}}}")
+        if acfg.sliding_window:
+            short_b = bytes_by_kind(amodel.init_cache(1, acfg.sliding_window))
+            print(f"long_500k {arch}: init_cache(1, {acfg.sliding_window}) {sum(short_b.values()) / 1e6:.3f} MB (the "
+                  f"ring holds the window); the {LONG_PROMPT}-token prompt lies outside the {acfg.sliding_window}-token "
+                  f"window at position {long_cell_.seq_len - 1}, so each decode step sees only the tokens decoded "
+                  f"before it, which is what attn_full computes there")
+            if long_b != short_b:
+                fail(f"long_500k {arch}: the ring cache grows with the context ({long_b} against {short_b})")
+        for kind_ in ("mamba", "rwkv6"):
+            if kind_ in long_b:
+                short_b = bytes_by_kind(amodel.init_cache(1, LONG_PROMPT))
+                print(f"long_500k {arch}: {kind_} state {long_b[kind_] / 1e6:.3f} MB at {long_cell_.seq_len} positions, "
+                      f"{short_b[kind_] / 1e6:.3f} MB at {LONG_PROMPT} (O(1)); the {n_attn} attention layer(s) hold "
+                      f"{long_b.get('attn', 0) / 1e9:.3f} GB")
+                if long_b[kind_] != short_b[kind_]:
+                    fail(f"long_500k {arch}: the {kind_} state grows with the context ({long_b[kind_]} against "
+                         f"{short_b[kind_]} bytes)")
+        # steps from the cell's last position on, where every attention layer has a window (its ring takes any
+        # position) or there is none; a full attention cache holds the cell's 524288 positions, so there the
+        # steps end at its last
+        full_attn = n_attn > 0 and not acfg.sliding_window
+        start = long_cell_.seq_len - (LONG_STEPS if full_attn else 1)
+        if full_attn:
+            print(f"long_500k {arch}: decode steps at {start}..{start + LONG_STEPS - 1}, the last the cell's last "
+                  f"position: the attention cache holds {long_cell_.seq_len} positions")
+        prompt = torch.randint(0, acfg.vocab_size, (long_cell_.global_batch, LONG_PROMPT), generator=gen, device=dev)
+        held_logits, held = kernels_held(
+            f"long_500k {arch} prefill",
+            lambda: amodel.prefill(prompt, amodel.init_cache(long_cell_.global_batch, long_cell_.seq_len),
+                                   schedule=table)[0], K1=n_moe, K4=n_attn, K6=n_mamba, K5=n_rwkv)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, long_caches = amodel.prefill(prompt, long_caches, schedule=table)
+        torch.cuda.synchronize()
+        prefill_ms_ = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(logits, held_logits):
+            fail(f"long_500k {arch}: the prefill's logits differ from the same prefill with the kernels held")
+        print(f"long_500k {arch}: the {LONG_PROMPT}-token prefill with the kernels held against their plain versions "
+              f"in every layer (K4 and K1 tol {BF16_TOL} + {BF16_TOL}*|plain|, K6 and K5 {WKV_TOL} + {WKV_TOL}*|plain|, "
+              f"f32) gives the counted prefill's logits bit for bit: max_abs_err "
+              f"{ {k: float(f'{v:.4g}') for k, v in held.items()} }")
+        del held_logits
+        token = torch.argmax(logits, dim=-1).to(specs["token"].dtype)
+        ms_, toks = [], []
+        for i in range(LONG_STEPS):
+            if token.shape != specs["token"].shape:
+                fail(f"long_500k {arch}: token {tuple(token.shape)} against the cell's {tuple(specs['token'].shape)}")
+            t0 = time.perf_counter()
+            logits, long_caches = amodel.decode_step(token, long_caches, start + i, schedule=table)
+            token = torch.argmax(logits, dim=-1).to(specs["token"].dtype)
+            toks.append(int(token[0]))  # reads the step back: it has finished
+            ms_.append((time.perf_counter() - t0) * 1e3)
+        got = read_counts()
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(flash_attention_fwd=n_attn, selective_scan=n_mamba * (1 + LONG_STEPS),
+                      moe_gemm_grouped=n_moe * (1 + LONG_STEPS), wkv6=n_rwkv * (1 + LONG_STEPS))
+        print(f"long_500k {arch}: prefill {prefill_ms_:.1f} ms ({LONG_PROMPT} tokens, batch 1) | decode at steps "
+              f"{start}..{start + LONG_STEPS - 1}: {sum(ms_) / len(ms_):.2f} ms/step "
+              f"(median {sorted(ms_)[len(ms_) // 2]:.2f}) | tokens {toks} | launches {got} (expected {expect}) ({card})")
+        if got != expect:
+            fail(f"long_500k {arch} launches {got}, expected {expect}")
+        if not torch.isfinite(logits).all() or not all(0 <= t_ < acfg.vocab_size for t_ in toks):
+            fail(f"long_500k {arch}: non-finite logits or tokens out of range")
+        row.update(prefill_ms=prefill_ms_, decode_ms_per_step=sum(ms_) / len(ms_), first_step=start,
+                   held_max_abs_err=held)
+        del long_caches, logits
+        torch.cuda.empty_cache()
+        return row, got
+
+    applies = {arch: shapes.cell_applicable(get_config(arch), shapes.CELLS["long_500k"])[0]
+               for arch in sorted(ARCH_REGISTRY)}
     print(f"long_500k applies: {applies}")
     if applies != {arch: get_config(arch).subquadratic for arch in applies} or not applies["rwkv6-7b"]:
         fail(f"long_500k cell_applicable {applies}: expected True for the subquadratic configs (rwkv6-7b among them)")
-    specs = shapes.input_specs(rcfg, long_cell)
-
-    def cache_bytes(caches) -> int:
-        return sum(t.numel() * t.element_size() for c in caches for t in c.values())
-
-    long_caches = rmodel.init_cache(long_cell.global_batch, long_cell.seq_len)
-    long_mb, short_mb = cache_bytes(long_caches) / 1e6, cache_bytes(rmodel.init_cache(1, LONG_PROMPT)) / 1e6
-    print(f"long_500k: init_cache(1, {long_cell.seq_len}) {long_mb:.3f} MB, init_cache(1, {LONG_PROMPT}) "
-          f"{short_mb:.3f} MB; input_specs {{{', '.join(f'{k}: {tuple(t.shape)} {t.dtype}' for k, t in specs.items())}}}")
-    if long_mb != short_mb:
-        fail(f"long_500k: the RWKV cache grows with the context ({long_mb} MB against {short_mb} MB)")
-    long_prompt = torch.randint(0, rcfg.vocab_size, (long_cell.global_batch, LONG_PROMPT), generator=wgen, device=dev)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    logits, long_caches = rmodel.prefill(long_prompt, long_caches)
-    torch.cuda.synchronize()
-    long_prefill_ms = (time.perf_counter() - t0) * 1e3
-    token = torch.argmax(logits, dim=-1).to(specs["token"].dtype)
-    step_ms, long_tokens = [], []
-    for i in range(LONG_STEPS):
-        if token.shape != specs["token"].shape:
-            fail(f"long_500k: token {tuple(token.shape)} against the cell's {tuple(specs['token'].shape)}")
-        t0 = time.perf_counter()
-        logits, long_caches = rmodel.decode_step(token, long_caches, long_cell.seq_len - 1 + i)
-        token = torch.argmax(logits, dim=-1).to(specs["token"].dtype)
-        long_tokens.append(int(token[0]))  # reads the step back: it has finished
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    long_launches = read_counts()
-    expect = dict.fromkeys(COUNTED, 0)
-    expect["wkv6"] = rcfg.n_layers * (1 + LONG_STEPS)
-    print(f"long_500k: prefill {long_prefill_ms:.1f} ms ({LONG_PROMPT} tokens, batch 1) | decode at steps "
-          f"{long_cell.seq_len - 1}..{long_cell.seq_len - 2 + LONG_STEPS}: {sum(step_ms) / len(step_ms):.2f} ms/step "
-          f"(median {sorted(step_ms)[len(step_ms) // 2]:.2f}) | tokens {long_tokens} | launches {long_launches} "
-          f"(expected {expect}) ({card})")
-    if long_launches != expect:
-        fail(f"long_500k path launches {long_launches}, expected {expect}")
-    if not torch.isfinite(logits).all() or not all(0 <= t_ < rcfg.vocab_size for t_ in long_tokens):
-        fail("long_500k: non-finite logits or tokens out of range")
-    long_row = {"cache_mb": long_mb, "prefill_ms": long_prefill_ms, "decode_ms_per_step": sum(step_ms) / len(step_ms)}
-    del rmodel, long_caches, logits, token
+    long_row, long_launches = long_cell(rcfg, rmodel, None, wgen)
+    del rmodel
     torch.cuda.empty_cache()
 
     # the same seeded 32-layer model in f32 (30 GB): kernel path vs plain path
@@ -2420,36 +2552,76 @@ def main() -> None:
     # 11. train full-width RWKV6-7B: first a train step at 1 layer, kernel path (K5, K5b) against the plain
     # path (wkv6_plain, wkv6_bwd_plain), then 4 layers through launch/train.py's train for RWKV_TRAIN_STEPS
     # steps (the slice's main path), then one more step traced
+    def train_step_vs_plain(label: str, model, batch, plain, expect: dict) -> dict:
+        """One loss and backward of ``model`` on ``batch`` through the kernels, then through their plain versions
+        (``plain``: (module, attribute, function) patches): the loss within GRAD_REL_TOL relative, each leaf's
+        gradient within GRAD_REL_TOL relative L2, and the kernel path's launches ``expect`` (the rest 0).
+        Returns each leaf's relative L2; the leaves' gradients are cleared after."""
+        def loss_and_grads():
+            for prm in model.parameters():
+                prm.grad = None
+            loss = model.loss(batch)
+            loss.backward()
+            grads = {n: prm.grad.detach().clone() for n, prm in model.named_parameters()}
+            for prm in model.parameters():
+                prm.grad = None
+            return loss.item(), grads
+
+        reset_counts()
+        k_loss, k_grads = loss_and_grads()
+        step_counts = read_counts()
+        with contextlib.ExitStack() as stack:
+            for mod, attr, fn in plain:
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+            p_loss, p_grads = loss_and_grads()
+        rel = {n: rel_l2(k_grads[n], p_grads[n]) for n in p_grads}
+        worst = max(rel, key=rel.get)
+        want = dict.fromkeys(COUNTED, 0) | expect
+        print(f"{label} train step, kernel vs plain path: loss {k_loss:.6f} vs {p_loss:.6f}, max leaf rel L2 "
+              f"{rel[worst]:.3g} ({worst}; tol {GRAD_REL_TOL}), kernel-path launches {step_counts}")
+        if not (math.isfinite(k_loss) and abs(k_loss - p_loss) <= GRAD_REL_TOL * abs(p_loss)) or not rel[worst] <= GRAD_REL_TOL:
+            fail(f"{label} train step: kernel path differs from the plain path (loss {k_loss} vs {p_loss}, "
+                 f"grad rel L2 {rel[worst]} at {worst})")
+        if step_counts != want:
+            fail(f"{label} train step launches {step_counts}, expected {want}")
+        return rel
+
+    def train_and_check(label: str, model, steps: int, batch: int, seq: int, expect: dict, trace_groups: dict):
+        """``model`` through launch/train.py's train for ``steps`` AdamW steps: launches exactly ``expect`` (the
+        rest 0), no table planned, finite losses, the mean of the last two below step 0's, peak memory under
+        LOOP_PEAK_GB; then one more step traced.  Returns the result, the peak GB and the launches."""
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = train(model, steps=steps, batch=batch, seq=seq, peak_lr=PEAK_LR, warmup=WARMUP)
+        got = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for i, (ls, gn, ms, tps) in enumerate(zip(res.losses, res.grad_norms, res.step_ms, res.tokens_per_s())):
+            print(f"{label} train step {i}: loss {ls:.4f} | grad norm {gn:.4f} | {ms:.1f} ms | {tps:.0f} tok/s")
+        want = dict.fromkeys(COUNTED, 0) | expect
+        print(f"{label} train: peak memory allocated {peak:.2f} GB (limit {LOOP_PEAK_GB} GB) | launches {got} "
+              f"(expected {want}) ({card})")
+        if got != want:
+            fail(f"{label} training path launches {got}, expected {want}")
+        if res.table is not None or not all(math.isfinite(v) for v in res.losses):
+            fail(f"{label} training planned a table or a loss is non-finite: {res.losses}")
+        if not (res.losses[-1] + res.losses[-2]) / 2 < res.losses[0]:
+            fail(f"{label} training loss did not fall: {res.losses}")
+        if not peak < LOOP_PEAK_GB:
+            fail(f"{label} training peak memory {peak:.2f} GB, limit {LOOP_PEAK_GB} GB")
+        with torch.profiler.profile(activities=activities) as prof:
+            traced = train(model, steps=1, batch=batch, seq=seq, peak_lr=PEAK_LR, warmup=WARMUP)
+        trace_report(prof, traced.step_ms[0], f"{label} train step trace ({card})",
+                     {**trace_groups, "cuBLAS GEMM": cublas, "elementwise and reductions": elementwise})
+        return res, peak, got
+
     rstream = SyntheticStream(DataConfig(vocab_size=rcfg.vocab_size, seq_len=RWKV_TRAIN_SEQ, global_batch=RWKV_TRAIN_BATCH))
     rbatch = {key: torch.from_numpy(val).to(dev) for key, val in rstream.batch(0).items()}
-    # rcfg.remat is "block": the backward recomputes each layer's forward, K5 included
+    # rcfg.remat is "block": the backward recomputes each layer's forward, K5 included; K5 twice, K5b once
     one = Model(dataclasses.replace(rcfg, n_layers=1), device=dev, param_dtype=torch.float32, requires_grad=True,
                 seed=1)
-
-    def rwkv_loss_and_grads():
-        for prm in one.parameters():
-            prm.grad = None
-        loss = one.loss(rbatch)
-        loss.backward()
-        return loss.item(), {n: prm.grad.detach().clone() for n, prm in one.named_parameters()}
-
-    reset_counts()
-    k_loss, k_grads = rwkv_loss_and_grads()
-    step_counts = read_counts()
-    with mock.patch.object(k5, "_forward", k5.wkv6_plain), mock.patch.object(k5, "_backward", k5.wkv6_bwd_plain):
-        p_loss, p_grads = rwkv_loss_and_grads()
-    rel = {n: rel_l2(k_grads[n], p_grads[n]) for n in p_grads}
-    worst = max(rel, key=rel.get)
-    expect = dict.fromkeys(COUNTED, 0)
-    expect.update(wkv6=2, wkv6_bwd=1)
-    print(f"rwkv train step, 1 layer, kernel vs plain path: loss {k_loss:.6f} vs {p_loss:.6f}, max leaf rel L2 "
-          f"{rel[worst]:.3g} ({worst}; tol {GRAD_REL_TOL}), kernel-path launches {step_counts}")
-    if not (math.isfinite(k_loss) and abs(k_loss - p_loss) <= GRAD_REL_TOL * abs(p_loss)) or not rel[worst] <= GRAD_REL_TOL:
-        fail(f"RWKV 1-layer train step: kernel path differs from the plain path (loss {k_loss} vs {p_loss}, "
-             f"grad rel L2 {rel[worst]} at {worst})")
-    if step_counts != expect:
-        fail(f"RWKV 1-layer train step launches {step_counts}, expected {expect}: K5 twice (remat) and K5b once")
-    del one, k_grads, p_grads, rbatch
+    train_step_vs_plain("rwkv, 1 layer,", one, rbatch, ((k5, "_forward", k5.wkv6_plain), (k5, "_backward", k5.wkv6_bwd_plain)),
+                        {"wkv6": 2, "wkv6_bwd": 1})
+    del one, rbatch
     torch.cuda.empty_cache()
 
     rtcfg = dataclasses.replace(rcfg, n_layers=RWKV_TRAIN_LAYERS)
@@ -2459,32 +2631,10 @@ def main() -> None:
     n_params = sum(prm.numel() for prm in model.parameters())
     print(f"rwkv train model: {rtcfg.name} {RWKV_TRAIN_LAYERS} of {rcfg.n_layers} layers, {n_params / 1e9:.3f} B params "
           f"(f32 masters), remat {rtcfg.remat}, init {time.perf_counter() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    rtres = train(model, steps=RWKV_TRAIN_STEPS, batch=RWKV_TRAIN_BATCH, seq=RWKV_TRAIN_SEQ, peak_lr=PEAK_LR,
-                  warmup=WARMUP)
-    rwkv_train_launches = read_counts()
-    rtpeak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for i, (ls, gn, ms, tps) in enumerate(zip(rtres.losses, rtres.grad_norms, rtres.step_ms, rtres.tokens_per_s())):
-        print(f"rwkv train step {i}: loss {ls:.4f} | grad norm {gn:.4f} | {ms:.1f} ms | {tps:.0f} tok/s")
-    print(f"rwkv train peak memory allocated: {rtpeak_gb:.2f} GB (limit {LOOP_PEAK_GB} GB) ({card})")
-    expect = dict.fromkeys(COUNTED, 0)
-    expect.update(wkv6=2 * RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS, wkv6_bwd=RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS)
-    print(f"rwkv train launches: {rwkv_train_launches} (expected {expect})")
-    if rwkv_train_launches != expect:
-        fail(f"RWKV training path launches {rwkv_train_launches}, expected {expect}")
-    if rtres.table is not None or not all(math.isfinite(v) for v in rtres.losses):
-        fail(f"RWKV training planned a table or a loss is non-finite: {rtres.losses}")
-    if not (rtres.losses[-1] + rtres.losses[-2]) / 2 < rtres.losses[0]:
-        fail(f"RWKV training loss did not fall: {rtres.losses}")
-    if not rtpeak_gb < LOOP_PEAK_GB:
-        fail(f"RWKV training peak memory {rtpeak_gb:.2f} GB, limit {LOOP_PEAK_GB} GB")
-    with torch.profiler.profile(activities=activities) as prof:
-        traced = train(model, steps=1, batch=RWKV_TRAIN_BATCH, seq=RWKV_TRAIN_SEQ, peak_lr=PEAK_LR, warmup=WARMUP)
-    trace_report(prof, traced.step_ms[0], f"rwkv train step trace ({card})", {
-        "K5 wkv6": {"wkv6_kernel"}, "K5b wkv6_bwd": {"wkv6_bwd_kernel"}, "cuBLAS GEMM": cublas,
-        "elementwise and reductions": elementwise,
-    })
+    rtres, rtpeak_gb, rwkv_train_launches = train_and_check(
+        "rwkv", model, RWKV_TRAIN_STEPS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ,
+        {"wkv6": 2 * RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS, "wkv6_bwd": RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS},
+        {"K5 wkv6": {"wkv6_kernel"}, "K5b wkv6_bwd": {"wkv6_bwd_kernel"}})
     rwkv_train_row = {"step_ms": rtres.step_ms, "losses": rtres.losses, "peak_gb": rtpeak_gb}
     del model
     torch.cuda.empty_cache()
@@ -2503,6 +2653,131 @@ def main() -> None:
         return (acc * (1 + 1e-7 * torch.randn(acc.shape, generator=ngen12, device=dev))).to(q.dtype)
 
     slice12, slice12_launches, s12_k4, s12_k6, s12_k1 = {}, dict.fromkeys(COUNTED, 0), {}, {}, {}
+    engine12_launches, long12_launches = dict.fromkeys(COUNTED, 0), dict.fromkeys(COUNTED, 0)
+
+    def engine_slice12(acfg, amodel) -> dict:
+        """Phase 12b: a phase-12 model behind ServeEngine (ENGINE_KW: 8 slots, buckets 64/128/256; the device
+        controller where the config has MoE), ENGINE12_PHASES phases of 8 requests arriving at once with prompts
+        in all three buckets.  Checks: every request completes; one decode graph; the replay equals the eager step
+        on copies bit for bit at the first ENGINE12_HELD steps of each phase, K6 and K1 held against their plain
+        versions in every layer of those eager steps; the first prefill of each bucket run again with K4, K6 and
+        K1 held in every layer gives the served row bit for bit; K4, K6 and K1 launches exact (a replay counts its
+        capture's launches), K6 and K1 among the capture's.  Returns the numbers."""
+        from repro_torch.serve import Request, ServeEngine
+
+        arch = acfg.name
+        kinds_ = [acfg.layer_kind(l) for l in range(acfg.n_layers)]
+        n_attn, n_mamba, n_moe = kinds_.count("attn"), kinds_.count("mamba"), acfg.n_moe_layers
+        eng = ServeEngine(acfg, amodel, **ENGINE_KW)
+        if eng.has_controller != bool(n_moe):
+            fail(f"{arch} engine: controller {eng.has_controller} for {n_moe} MoE layers")
+        kinds, comparing = {}, [False]
+        real_decode, real_prefill = eng._decode_once, eng._prefill_row
+        step_ms, prefill_ms, held, hold_left = [], {}, [], [0]
+        held_errs = {"prefill": {}, "decode": []}  # each held run's largest max |kernel - plain| by kernel
+
+        def held_decode():
+            hold = hold_left[0] > 0
+            if hold:
+                comparing[0] = True
+                ref, errs = kernels_held(f"{arch} engine decode step {len(step_ms) + 1}", eng.step_on_copies,
+                                         K1=n_moe, K6=n_mamba)
+                comparing[0] = False
+                held_errs["decode"].append(errs)
+                hold_left[0] -= 1
+            t0 = time.perf_counter()
+            nxt = real_decode()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if hold:
+                live = torch.from_numpy(np.flatnonzero(eng.batcher.live)).to(dev)
+                same = np.array_equal(eng.last_outputs, ref["outputs"]) and all(
+                    torch.equal(mine[key][live], theirs[key][live])
+                    for mine, theirs in zip(eng._caches, ref["caches"]) for key in mine)
+                if eng.has_controller:
+                    same = same and all(torch.equal(leaf, ref["state"].leaves()[name])
+                                        for name, leaf in eng._state.leaves().items())
+                held.append(len(step_ms))
+                if not same:
+                    fail(f"{arch} engine decode step {len(step_ms)}: the graph replay differs from the eager step "
+                         f"function on copies of its inputs")
+            return nxt
+
+        def timed_prefill(req, bucket):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_prefill(req, bucket)
+            torch.cuda.synchronize()
+            if out[1] > 0:
+                prefill_ms.setdefault(bucket, []).append((time.perf_counter() - t0) * 1e3)
+            if out[1] > 0 and bucket not in held_errs["prefill"]:
+                # the same prefill again with the kernels held: it must also give the served row
+                again, held_errs["prefill"][bucket] = kernels_held(
+                    f"{arch} engine prefill bucket {bucket}", lambda: real_prefill(req, bucket), K1=n_moe, K4=n_attn,
+                    K6=n_mamba)
+                if not all(torch.equal(a_[key], b_[key]) for a_, b_ in zip(out[0], again[0]) for key in a_):
+                    fail(f"{arch} engine prefill bucket {bucket}: the row differs from the same prefill with the "
+                         f"kernels held")
+            return out
+
+        eng._decode_once, eng._prefill_row = held_decode, timed_prefill
+        erng = np.random.default_rng(ENGINE_SEED + 12)
+        t_eng = time.perf_counter()
+        reset_counts()
+        with counting_engine_steps(kinds, comparing):
+            for ph in range(ENGINE12_PHASES):
+                reqs = [Request(prompt=erng.integers(0, acfg.vocab_size, n), max_new_tokens=int(erng.integers(8, 17)))
+                        for n in ENGINE_TRACE_PROMPTS]
+                hold_left[0] = ENGINE12_HELD
+                before = eng.metrics()["serve"]
+                out = eng.run(reqs)
+                s_, c_ = out["serve"], out["compile"]
+                done = sum(r.done for r in reqs)
+                rejected = s_["requests"]["rejected"] - before["requests"]["rejected"]
+                print(f"{arch} engine phase {ph}: completed {done}/{len(reqs)}, rejected {rejected} | decode steps "
+                      f"{s_['decode_steps'] - before['decode_steps']} | compile {c_}"
+                      + (f" | controller {out['controller']}" if eng.has_controller else "") + f" ({card})")
+                if done != len(reqs) or rejected or c_["decode_executables"] != 1:
+                    fail(f"{arch} engine phase {ph}: {done} of {len(reqs)} completed, {rejected} rejected, "
+                         f"{c_['decode_executables']} decode graphs")
+        counted = read_counts()
+        wall = time.perf_counter() - t_eng
+        del eng._decode_once, eng._prefill_row
+        if eng.metrics()["compile"]["prefill_executables"] != len(ENGINE_KW["buckets"]):
+            fail(f"{arch} engine: {eng.metrics()['compile']['prefill_executables']} bucket shapes prefilled")
+        main_, captured, warmup = engine_launches_of(kinds, counted, eng.graph_replays)
+        n_prefill, n_decode = sum(len(v) for v in prefill_ms.values()), len(step_ms)
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(flash_attention_fwd=n_attn * n_prefill,
+                      selective_scan=n_mamba * (n_prefill + n_decode + warmup["calls"]),
+                      moe_gemm_grouped=n_moe * (n_prefill + n_decode + warmup["calls"]))
+        print(f"{arch} engine launches: {main_} (expected {expect}: K4 attention layers x prefills {n_prefill}, K6 "
+              f"and K1 Mamba / MoE layers x (prefills + decode steps {n_decode} + the capture's warm-up step "
+              f"{warmup['calls']}); {eng.graph_replays} replays of one graph recording K6 {captured['selective_scan']}"
+              f" and K1 {captured['moe_gemm_grouped']} times); graph vs eager held bit for bit at steps {held}")
+        if captured["calls"] != 1 or main_ != expect or eng.graph_replays != n_decode or \
+                (captured["selective_scan"], captured["moe_gemm_grouped"]) != (n_mamba, n_moe) or \
+                len(held) != ENGINE12_PHASES * ENGINE12_HELD or sorted(held_errs["prefill"]) != sorted(ENGINE_KW["buckets"]):
+            fail(f"{arch} engine launches {main_}, expected {expect}; captures {captured}; held at {held}, prefill "
+                 f"buckets held {sorted(held_errs['prefill'])}")
+        decode_errs = {name: max(e[name] for e in held_errs["decode"]) for name in held_errs["decode"][0]}
+        print(f"{arch} engine kernels held against their plain versions in every layer (K4 and K1 tol {BF16_TOL} + "
+              f"{BF16_TOL}*|plain|, K4 also {K4_REL_L2} rel L2 a (b, head); K6 {WKV_TOL} + {WKV_TOL}*|plain|, f32): "
+              f"batch-1 prefill, bucket: max_abs_err "
+              f"{ {b_: {k_: float(f'{v:.4g}') for k_, v in e.items()} for b_, e in sorted(held_errs['prefill'].items())} }; "
+              f"decode at the {len(held_errs['decode'])} held steps (the replays equal them): "
+              f"{ {k_: float(f'{v:.4g}') for k_, v in decode_errs.items()} } ({card})")
+        row = {"decode_ms_per_step_median": float(np.median(step_ms)), "decode_steps": n_decode,
+               "prefill_ms_median": {b_: float(np.median(v)) for b_, v in sorted(prefill_ms.items())},
+               "graph_replays": eng.graph_replays, "held_steps": len(held), "wall_s": wall,
+               "held_max_abs_err": {"prefill": held_errs["prefill"], "decode": decode_errs}}
+        print(f"{arch} engine: decode ms/step (graph, host clock) median {row['decode_ms_per_step_median']:.2f} | "
+              f"prefill ms median by bucket {row['prefill_ms_median']} | {wall:.1f} s wall ({card})")
+        for key in COUNTED:
+            engine12_launches[key] += main_[key]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return row
 
     def slice12_config(arch, keep, bsz, plen, new) -> None:
         """Serve one config, check it, time its kernels; everything it holds is freed on return."""
@@ -2564,11 +2839,17 @@ def main() -> None:
             print_rows(arch, {"selective_scan at one decode step": s12_k6[arch]["decode"]})
         if "moe_gemm_grouped" in rows:
             s12_k1[arch] = rows["moe_gemm_grouped"]
+        extra12 = {}
+        if arch in SLICE12_ENGINE:  # 12b and 10c on the same model, before it is freed
+            extra12["engine"] = engine_slice12(acfg, amodel)
+            extra12["long_500k"], got_long = long_cell(acfg, amodel, ares.table, ngen12)
+            for key in COUNTED:
+                long12_launches[key] += got_long[key]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         slice12[arch] = {"layers": acfg.n_layers, "batch": bsz, "prompt": plen, "prefix": prefix, "new_tokens": new,
                          "prefill_ms": ares.prefill_ms[0], "decode_ms_per_step": ares.decode_ms[0] / new,
                          "peak_gb": peak_gb, "logits_rel_l2": rel, "noise_floor": floor,
-                         "serve_and_hold_s": serve_s}
+                         "serve_and_hold_s": serve_s, **extra12}
         print(f"{arch}: peak memory allocated {peak_gb:.2f} GB, serve and hold {serve_s:.1f} s ({card})")
 
     for arch, keep, bsz, plen, new in SLICE12:
@@ -2577,13 +2858,138 @@ def main() -> None:
         torch.cuda.empty_cache()
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s wall ({card})")
 
-    # 13. the kernels line, then the result line
+    # 13. training the hybrid and a dense config (TRAIN13): for Jamba's layer 0 first a train step, kernel path
+    # (K6, K6b) against the plain path, with the first scan backward's inputs recorded; K6b held against its
+    # plain version on them and timed as a CUDA graph replay; then each model through launch/train.py's train
+    t_phase = time.perf_counter()
+    train13, train13_launches, k6b_row = {}, dict.fromkeys(COUNTED, 0), None
+
+    def plain_scan_forward(*args, checkpoints=False, **kw):
+        out = k6.selective_scan_plain(*args, **kw)
+        return (*out, None) if checkpoints else out
+
+    for arch, keep in TRAIN13:
+        acfg = get_config(arch)
+        if keep is not None:
+            acfg = dataclasses.replace(acfg, n_layers=keep)
+        kinds_ = [acfg.layer_kind(l) for l in range(acfg.n_layers)]
+        n_mamba = kinds_.count("mamba")
+        t0 = time.perf_counter()
+        model = Model(acfg, device=dev, param_dtype=torch.float32, requires_grad=True, seed=0)
+        torch.cuda.synchronize()
+        n_params = sum(prm.numel() for prm in model.parameters())
+        print(f"train13 model: {arch} {acfg.n_layers} layers ({', '.join(sorted(set(kinds_)))}; ffn "
+              f"{sorted({acfg.ffn_kind(l) for l in range(acfg.n_layers)})}), {n_params / 1e9:.3f} B params (f32 "
+              f"masters), remat {acfg.remat}, init {time.perf_counter() - t0:.1f} s")
+        if n_mamba:
+            stream13 = SyntheticStream(DataConfig(vocab_size=acfg.vocab_size, seq_len=TRAIN13_SEQ,
+                                                  global_batch=TRAIN13_BATCH, seed=1))
+            batch13 = {key: torch.from_numpy(val).to(dev) for key, val in stream13.batch(0).items()}
+            recorded = {}
+            real_backward = k6._backward
+
+            def recording_backward(*args, **kw):
+                recorded.setdefault("args", (tuple(t.detach().clone() if isinstance(t, torch.Tensor) else t
+                                                   for t in args), {k_: v.detach().clone() for k_, v in kw.items()
+                                                                    if isinstance(v, torch.Tensor)}))
+                return real_backward(*args, **kw)
+
+            with mock.patch.object(k6, "_backward", recording_backward):  # records the kernel path's call
+                rel = train_step_vs_plain(f"{arch}, {acfg.n_layers} layer,", model, batch13, (
+                    (k6, "_forward", plain_scan_forward), (k6, "_backward", k6.selective_scan_bwd_plain)),
+                    {"selective_scan": 2 * n_mamba, "mamba_scan_bwd": n_mamba})  # K6 twice (remat), K6b once
+            print(f"{arch} train step gradients, kernel vs plain path: rel L2 a_log {rel['layers.0.mixer.a_log']:.3g}, "
+                  f"d_skip {rel['layers.0.mixer.d_skip']:.3g}")
+            del batch13
+
+            # K6b on the recorded inputs of the layer's scan backward: the training shape and its data
+            (x6, dt6, b6, c6, a6, d6, dy6, h06, dhf6), kw6 = recorded["args"][0][:9], recorded["args"][1]
+            hck6 = kw6["checkpoints"]
+            got = k6._launch_bwd(x6, dt6, b6, c6, a6, d6, dy6, h06, dhf6, hck6)  # comparison launches: not counted
+            again = k6._launch_bwd(x6, dt6, b6, c6, a6, d6, dy6, h06, dhf6, hck6)
+            want = k6.selective_scan_bwd_plain(x6, dt6, b6, c6, a6, d6, dy6, h06, dhf6)
+            torch.cuda.synchronize()
+            parts, worst_err, rels = [], 0.0, {}
+            for name, g, w, g2 in zip(("dx", "ddt", "db", "dc", "da", "dd_skip", "dh0"), got, want, again):
+                if w is None:
+                    continue
+                if not torch.isfinite(g).all():
+                    fail(f"K6b {name}: non-finite")
+                if not torch.equal(g, g2):
+                    fail(f"K6b {name}: two runs on the same inputs differ")
+                r_, err, top = rel_l2(g, w), float((g - w).abs().max()), float(w.abs().max())
+                if r_ > SCAN_BWD_TOL or err > SCAN_BWD_TOL * top:
+                    fail(f"K6b {name}: rel L2 {r_:.3g}, max |diff| {err:.4g} against max |plain| {top:.4g} (tol "
+                         f"{SCAN_BWD_TOL} each)")
+                worst_err, rels[name] = max(worst_err, err), r_
+                parts.append(f"{name} {r_:.3g} / {err / top:.3g}")
+            print(f"K6b at the training shape on the layer's own inputs: rel L2 / max |diff| over max |plain| (tol "
+                  f"{SCAN_BWD_TOL} each): {', '.join(parts)}; two runs equal bit for bit")
+            bsz_, s_, di_ = x6.shape
+            ds_ = a6.shape[1]
+            n_el = bsz_ * s_ * di_
+            # the bound, from the function's least traffic: x (its dtype), dt, dy, B and C read once; dx, ddt, dB and
+            # dC written once; a, d_skip (and h0, dh_final where given) read, da, dd_skip (and dh0) written; no
+            # checkpoints (how many a design keeps is its own choice, so they are reported apart, as its traffic);
+            # operations: one exponential a (b, t, i, s), the least the adjoint's propagation takes
+            state_n = bsz_ * di_ * ds_
+            nbytes = n_el * x6.element_size() + 4 * (4 * n_el + 4 * bsz_ * s_ * ds_ + 2 * a6.numel() + 2 * di_
+                                                     + (2 * state_n if h06 is not None else 0)
+                                                     + (state_n if dhf6 is not None else 0))
+            t_bytes, t_exp = nbytes / HBM_BYTES_PER_S, n_el * ds_ / EXP_PER_S
+            t_flops = 12.0 * n_el * ds_ / PEAK_F32_FLOPS
+            ck = k6.ckpt_steps()
+            # this design's own traffic: the function's, its checkpoints read, its dB/dC partials written and read
+            n_blocks = -(-di_ // k6._bwd_lib().mamba_scan_bwd_block_channels())
+            design_bytes = nbytes + 4 * hck6.numel() + 2 * 4 * n_blocks * bsz_ * s_ * 2 * k6.MAX_STATE
+            k6b_row = {
+                "shape": f"x[{bsz_},{s_},{di_}] {str(x6.dtype).removeprefix('torch.')} ds {ds_}, dt/dy f32, "
+                         f"checkpoints every {ck} steps, from zeros (Jamba layer 0 in training)",
+                "max_abs_err": worst_err, "rel_l2": rels,
+                "ms": graph_ms(lambda: k6._launch_bwd(x6, dt6, b6, c6, a6, d6, dy6, h06, dhf6, hck6), 5),
+                "plain_ms": cuda_ms(lambda: k6.selective_scan_bwd_plain(x6, dt6, b6, c6, a6, d6, dy6), 1, warmup=1),
+                "library_ms": None, "bound_ms": max(t_bytes, t_exp) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_exp else "operations",
+                "bound_parts_ms": {"bytes": t_bytes * 1e3, "exponentials": t_exp * 1e3, "f32 FLOPs": t_flops * 1e3},
+                "bound_bytes": nbytes, "design_bytes": design_bytes, "design_bytes_ms": design_bytes / HBM_BYTES_PER_S * 1e3,
+                "forward_checkpointed_ms": graph_ms(lambda: k6._launch(x6, dt6, b6, c6, a6, d6, checkpoints=True), 5),
+                "forward_ms": graph_ms(lambda: k6._launch(x6, dt6, b6, c6, a6, d6), 5),
+            }
+            print(f"K6b backward: {k6b_row['shape']} | kernel {k6b_row['ms']:.4f} ms (CUDA graph replay) | plain "
+                  f"{k6b_row['plain_ms']:.1f} ms | library: none (no PyTorch call computes it) | bound "
+                  f"{k6b_row['bound_ms']:.4f} ms ({k6b_row['bound_by']}, {nbytes / 1e9:.3f} GB with no checkpoints; "
+                  f"parts {k6b_row['bound_parts_ms']}), {100 * k6b_row['bound_ms'] / k6b_row['ms']:.1f}% of bound | this "
+                  f"design's traffic (checkpoints every {ck} steps, dB/dC partials) {k6b_row['design_bytes'] / 1e9:.3f} GB, "
+                  f"{k6b_row['design_bytes_ms']:.4f} ms | K6 forward on the same inputs {k6b_row['forward_ms']:.4f} ms, "
+                  f"with checkpoints {k6b_row['forward_checkpointed_ms']:.4f} ms ({card})")
+            del recorded, got, again, want, x6, dt6, b6, c6, a6, d6, dy6, hck6
+            torch.cuda.empty_cache()
+
+        tres13, peak13, got = train_and_check(
+            arch, model, TRAIN13_STEPS, TRAIN13_BATCH, TRAIN13_SEQ,
+            {"selective_scan": 2 * n_mamba * TRAIN13_STEPS, "mamba_scan_bwd": n_mamba * TRAIN13_STEPS},
+            {"K6 selective_scan": {"mamba_scan_kernel"}, "K6b mamba_scan_bwd": {"mamba_scan_bwd_kernel"},
+             "K6b partial sums": {"sum_parts_kernel"}})  # K6 2 x Mamba layers x steps under remat, K6b once each
+        for key in COUNTED:
+            train13_launches[key] += got[key]
+        train13[arch] = {"layers": acfg.n_layers, "params_b": n_params / 1e9, "step_ms": tres13.step_ms,
+                         "tok_s": tres13.tokens_per_s(), "losses": tres13.losses, "peak_gb": peak13}
+        del model, tres13
+        gc.collect()
+        torch.cuda.empty_cache()
+    if k6b_row is None:
+        fail("phase 13: no Mamba layer trained, so K6b was never held")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s wall ({card})")
+
+    # the kernels line, then the result line
     path_launches = {
         name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
                **{f"serve_{arch}": arch_launches[arch][name] for arch in ARCHS}, "wire_codecs": wire_launches[name],
                "knee": knee_launches[name], "train": train_launches[name], "train_loop": loop_launches[name],
                "rwkv_serve": rwkv_launches[name], "rwkv_long_500k": long_launches[name],
-               "rwkv_train": rwkv_train_launches[name], "slice12": slice12_launches[name]}
+               "rwkv_train": rwkv_train_launches[name], "slice12": slice12_launches[name],
+               "slice12_engine": engine12_launches[name], "slice12_long_500k": long12_launches[name],
+               "train13": train13_launches[name]}
         for name in COUNTED
     }
     kernels = [
@@ -2644,6 +3050,12 @@ def main() -> None:
             replaces="src/repro/models/mamba.py:66", launches=sum(path_launches["selective_scan"].values()),
             launches_by_path=path_launches["selective_scan"], **s12_k6["jamba-1.5-large-398b"],
         ),
+        dict(
+            name="mamba_scan_bwd", route="cuda", source="src/repro_torch/csrc/mamba_scan_bwd.cu",
+            # port-side: the JAX model differentiates its lax.scan (_scan_ssm; no Pallas backward)
+            replaces="src/repro/models/mamba.py:66", launches=sum(path_launches["mamba_scan_bwd"].values()),
+            launches_by_path=path_launches["mamba_scan_bwd"], **k6b_row, train13=train13,
+        ),
     ]
     # this slice's new numbers, each on its own line beside the card
     for key in K4_EXTRA_KEYS:
@@ -2655,6 +3067,8 @@ def main() -> None:
         print(f"K2 dgrad {key}: {k23_rows['dgrad'][key]} ({card})")
     for arch, row in slice12.items():
         print(f"phase 12 {arch}: {json.dumps(row)} ({card})")
+    for arch, row in train13.items():
+        print(f"phase 13 {arch}: {json.dumps(row)} ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -10,7 +10,11 @@
 // a [di, ds] f32 (= -exp(a_log)), d_skip [di] f32, an optional carried
 // state h0 [B, di, ds] f32 (nullptr: zeros), y [B, S, di] f32 and the
 // final state h [B, di, ds] f32.  h may be h0 itself: a decode step
-// writes the cache's state in place.
+// writes the cache's state in place.  Under autograd the launch also writes
+// checkpoints hck [B, ceil(S / ck), ds, di] f32, the state before every
+// ck-th step, which the backward (K6b, csrc/mamba_scan_bwd.cu) recomputes
+// its chunks from; serving passes none, and that build of the kernel
+// (CKPT false) has no store for them.
 //
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32, 16 exponentials a
 // clock an SM on the special-function units): at Jamba's prefill (B 4,
@@ -44,12 +48,12 @@ constexpr int CH = 32;       // time steps staged a chunk
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
 
-template <typename TX>
+template <typename TX, bool CKPT>
 __global__ void __launch_bounds__(THREADS) mamba_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
                                                              const float* __restrict__ Bm, const float* __restrict__ Cm,
                                                              const float* __restrict__ A, const float* __restrict__ Dskip,
-                                                             const float* h0, float* __restrict__ y, float* h_out, int S,
-                                                             int DI, int DS) {
+                                                             const float* h0, float* __restrict__ y, float* h_out,
+                                                             float* __restrict__ hck, int S, int DI, int DS, int ck) {
   __shared__ float sx[CH][THREADS], sdt[CH][THREADS];
   __shared__ float sb[CH][MAX_DS], sc[CH][MAX_DS];
   const int b = blockIdx.y, i0 = blockIdx.x * THREADS, i = i0 + threadIdx.x;
@@ -80,6 +84,12 @@ __global__ void __launch_bounds__(THREADS) mamba_scan_kernel(const TX* __restric
     __syncthreads();
     if (live) {
       for (int r = 0; r < n; ++r) {
+        if (CKPT && (t0 + r) % ck == 0) {  // [s][channel]: each store coalesced over the block's channels
+          float* out = hck + ((long long)b * ((S + ck - 1) / ck) + (t0 + r) / ck) * DS * DI + i;
+#pragma unroll
+          for (int s = 0; s < MAX_DS; ++s)
+            if (s < DS) out[(long long)s * DI] = h[s];
+        }
         const float xv = sx[r][threadIdx.x], d = sdt[r][threadIdx.x], dx = d * xv;
         float acc = 0.f;
 #pragma unroll
@@ -98,14 +108,15 @@ __global__ void __launch_bounds__(THREADS) mamba_scan_kernel(const TX* __restric
   }
 }
 
-template <typename TX>
+template <typename TX, bool CKPT>
 int launch(const void* x, const void* dt, const void* Bm, const void* Cm, const void* A, const void* Dskip,
-           const void* h0, void* y, void* h_out, int B, int S, int DI, int DS, cudaStream_t stream) {
+           const void* h0, void* y, void* h_out, void* hck, int B, int S, int DI, int DS, int ck, cudaStream_t stream) {
   const dim3 grid((DI + THREADS - 1) / THREADS, B);
-  mamba_scan_kernel<TX><<<grid, THREADS, 0, stream>>>(
+  mamba_scan_kernel<TX, CKPT><<<grid, THREADS, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const float*>(dt), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<const float*>(A), static_cast<const float*>(Dskip),
-      static_cast<const float*>(h0), static_cast<float*>(y), static_cast<float*>(h_out), S, DI, DS);
+      static_cast<const float*>(h0), static_cast<float*>(y), static_cast<float*>(h_out), static_cast<float*>(hck), S,
+      DI, DS, ck);
   return (int)cudaGetLastError();
 }
 
@@ -113,13 +124,19 @@ int launch(const void* x, const void* dt, const void* Bm, const void* Cm, const 
 
 // x [B, S, DI] (bf16 if x_bf16, else f32), dt [B, S, DI], Bm/Cm [B, S, DS],
 // A [DI, DS], Dskip [DI], h0 (nullptr: zeros) and h_out [B, DI, DS] f32, y
-// [B, S, DI] f32, all contiguous; h_out may equal h0.  1 <= DS <= 16.
+// [B, S, DI] f32, all contiguous; h_out may equal h0.  hck (nullptr: none)
+// [B, ceil(S / ck), DS, DI] f32 receives the checkpoints.  1 <= DS <= 16.
 // Returns the CUDA error code (0 = ok).
 extern "C" int mamba_scan_fwd(const void* x, const void* dt, const void* Bm, const void* Cm, const void* A,
-                              const void* Dskip, const void* h0, void* y, void* h_out, int B, int S, int DI, int DS,
-                              int x_bf16, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || DI <= 0 || DS <= 0 || DS > MAX_DS) return (int)cudaErrorInvalidValue;
+                              const void* Dskip, const void* h0, void* y, void* h_out, void* hck, int B, int S, int DI,
+                              int DS, int ck, int x_bf16, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || DI <= 0 || DS <= 0 || DS > MAX_DS || (hck != nullptr && ck <= 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) return launch<bf16>(x, dt, Bm, Cm, A, Dskip, h0, y, h_out, B, S, DI, DS, s);
-  return launch<float>(x, dt, Bm, Cm, A, Dskip, h0, y, h_out, B, S, DI, DS, s);
+  if (hck != nullptr) {
+    if (x_bf16) return launch<bf16, true>(x, dt, Bm, Cm, A, Dskip, h0, y, h_out, hck, B, S, DI, DS, ck, s);
+    return launch<float, true>(x, dt, Bm, Cm, A, Dskip, h0, y, h_out, hck, B, S, DI, DS, ck, s);
+  }
+  if (x_bf16) return launch<bf16, false>(x, dt, Bm, Cm, A, Dskip, h0, y, h_out, nullptr, B, S, DI, DS, 1, s);
+  return launch<float, false>(x, dt, Bm, Cm, A, Dskip, h0, y, h_out, nullptr, B, S, DI, DS, 1, s);
 }

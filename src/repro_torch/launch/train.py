@@ -9,6 +9,10 @@ failure) for ``--steps`` steps of synthetic data.
         --grad-compress ef8
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
         --layers 4 --steps 8 --seq 1024 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch jamba-1.5-large-398b --layers 1 --steps 8 --seq 1024 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        --steps 8 --seq 1024 --batch 4
 
 The table follows the JAX launcher's recipe: ``build_schedule(cfg, n,
 t_rank, plan="lossless")`` with ``t_rank = batch * seq // n`` tokens per
@@ -16,7 +20,9 @@ rank, one row per MoE layer with an automatic envelope (for a dispatch
 that consumes table rows).  On one card the JAX launcher's ``n`` is its
 mesh's model axis, 1; the port takes ``n`` from ``--virtual-ranks``, as
 its serving launcher does.  A model without MoE (RWKV6) plans no table,
-and ``--dispatch`` leaves it as it is.  The model keeps f32 masters and
+and ``--dispatch`` leaves it as it is.  A frontend config (internvl2,
+musicgen) trains on ``frontend_tokens`` prefix embeddings then text
+tokens, as JAX's launcher feeds it (``data_config``).  The model keeps f32 masters and
 computes in bf16; AdamW follows ``cosine_schedule(peak_lr, warmup,
 steps)``.  Each
 step of ``train`` logs loss, grad norm, step ms and tokens/s; ``main``
@@ -50,7 +56,7 @@ from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.parallel.fabric import TABLE_FABRICS
 from repro_torch.train import TrainLoopConfig, make_train_step, train_loop
 
-__all__ = ["TrainResult", "plan_table", "plan_controller", "train", "main"]
+__all__ = ["TrainResult", "data_config", "plan_table", "plan_controller", "train", "main"]
 
 log = logging.getLogger("repro_torch.launch.train")
 
@@ -90,6 +96,14 @@ def plan_controller(cfg, *, batch: int, seq: int, virtual_ranks: int, device, **
     return rt, ctrl, state
 
 
+def data_config(cfg, *, seq: int, batch: int, seed: int = 0) -> DataConfig:
+    """The JAX launcher's data: a frontend config's ``seq`` positions are
+    ``frontend_tokens`` embeddings (``ext_embeds`` [B, P, d]) then ``seq - P``
+    tokens."""
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed,
+                      frontend_tokens=cfg.frontend_tokens if cfg.frontend != "none" else 0, d_model=cfg.d_model)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -100,7 +114,7 @@ def train(model: Model, *, steps: int, batch: int, seq: int, virtual_ranks: int 
     """Train ``model`` in place for ``steps`` steps of synthetic data."""
     cfg, device = model.cfg, model.device
     table = plan_table(cfg, batch=batch, seq=seq, virtual_ranks=virtual_ranks, device=device)
-    stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed))
+    stream = SyntheticStream(data_config(cfg, seq=seq, batch=batch, seed=seed))
     opt = AdamW(lr=cosine_schedule(peak_lr, warmup, steps))
     step_fn = make_train_step(model, opt, microbatches=microbatches)
     losses, norms, step_ms = [], [], []
@@ -150,7 +164,7 @@ def main(argv=None) -> dict:
         steps=args.steps, ckpt_dir=args.ckpt, ckpt_every=max(args.steps // 4, 10), microbatches=args.microbatches,
         grad_compress=args.grad_compress, log_every=10,
     )
-    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch)
+    data_cfg = data_config(cfg, seq=args.seq, batch=args.batch)
     res = train_loop(model, data_cfg, loop_cfg, schedule=table)
     log.info("done: step %d loss %.4f (%d failures recovered)", res["final_step"], res["final_loss"], res["failures"])
     return {**res, "table": table}

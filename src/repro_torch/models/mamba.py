@@ -2,7 +2,9 @@
 -> SiLU -> selective scan (data-dependent dt, B, C; zero-order hold) ->
 gate -> out_proj.  The scan runs in kernel K6
 (``kernels.mamba_scan.selective_scan``) exactly where the JAX model runs
-its ``lax.scan`` (``_scan_ssm``), in prefill and decode alike.
+its ``lax.scan`` (``_scan_ssm``), in prefill and decode alike; in training
+``mamba_seq`` is differentiable in every parameter (the scan's backward is
+K6b), and ``h_out`` stays a serving argument.
 
 Dtypes follow the JAX mixer: ``a_log``, ``dt_bias`` and ``d_skip`` are
 f32 parameters used in f32; the projections and ``conv_w`` / ``conv_b``

@@ -2,16 +2,15 @@
 place, handing ``table.row(l)`` to the l-th MoE layer.  The training
 stack checkpoints each block under ``cfg.remat == "block"``
 (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of a period),
-so the backward recomputes the block's forward, K1 (or K5) included.
+so the backward recomputes the block's forward, K1, K5 or K6 included.
 
 Three mixers are ported, chosen by ``cfg.layer_kind(j)``: attention and
 Mamba, each followed by an FFN chosen by ``cfg.ffn_kind(j)`` (the MoE
 layer, the dense SwiGLU or, under ``ffn_gelu``, the GELU MLP), and RWKV6
 (time mix + channel mix).  A layer's decode state is a dict: the KV cache
 of ``attention.init_cache``, Mamba's ``{"h", "tail"}`` or RWKV6's
-``rwkv.rwkv_init_state``.  Training runs attention and RWKV6 blocks; a
-Mamba block waits for K6's backward.  Counterpart of
-``repro/models/stack.py``.
+``rwkv.rwkv_init_state``.  Training runs every kind (a Mamba block's
+scan backward is K6b).  Counterpart of ``repro/models/stack.py``.
 """
 
 from __future__ import annotations
@@ -64,18 +63,17 @@ def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype) -> Block:
 def block_train(p: Block, cfg: ModelConfig, x, schedule, *, collect_stats=False):
     """One training layer over x [B, S, d].  Returns (x, stats-or-None);
     an rwkv6 layer (time mix from S = 0, then channel mix) and a dense FFN
-    have no stats."""
-    if p.kind == "mamba":
-        raise NotImplementedError(
-            "training through a Mamba block needs K6's backward kernel (ROADMAP §1: Jamba training)"
-        )
+    have no stats; a Mamba mixer scans from a zero state."""
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
     if p.kind == "rwkv6":
         y, _ = rwkv.rwkv_time_mix(p.mixer, cfg, h)
         x = x + y
         y, _ = rwkv.rwkv_channel_mix(p.mixer, rmsnorm(x, p.ln2, eps=cfg.norm_eps))
         return x + y, None
-    x = x + attn.attn_train(p.mixer, cfg, h)
+    if p.kind == "mamba":
+        x = x + mamba.mamba_seq(p.mixer, cfg, h)[0]
+    else:
+        x = x + attn.attn_train(p.mixer, cfg, h)
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
     return _ffn(p, cfg, x, h, schedule, collect_stats)
 

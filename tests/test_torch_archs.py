@@ -259,14 +259,24 @@ def test_transplant_dtypes_of_the_new_modules():
 
 
 def test_mamba_block_training_raises():
-    """Training through a Mamba block waits for K6's backward."""
-    pcfg = smoke_config(JAMBA)
+    """Training through a Mamba block no longer raises (K6b is the scan's
+    backward; the name is the test's first, kept): a loss over the smoke
+    Jamba's first period backpropagates, and every f32 leaf of its Mamba
+    blocks (the mixers' a_log, dt_bias and d_skip among them) receives a
+    finite, nonzero gradient.  ``tests/test_torch_mamba_train.py`` holds the
+    gradients against JAX's."""
+    pcfg = dataclasses.replace(smoke_config(JAMBA), n_layers=8)
     from repro_torch.models import Model
 
-    model = Model(pcfg, device="cpu", dtype=torch.float32)
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="K6"):
-        model.loss({"tokens": tokens, "targets": tokens})
+    model = Model(pcfg, device="cpu", dtype=torch.float32, param_dtype=torch.float32, requires_grad=True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, pcfg.vocab_size, (2, 12)))
+    model.loss({"tokens": tokens, "targets": tokens.roll(-1, 1)}).backward()
+    mamba_blocks = [blk for blk in model.layers if blk.kind == "mamba"]
+    assert len(mamba_blocks) == 7
+    for blk in mamba_blocks:
+        for name, prm in blk.named_parameters():
+            assert prm.dtype == torch.float32 and prm.grad is not None, name
+            assert torch.isfinite(prm.grad).all() and prm.grad.abs().max() > 0, name
 
 
 @pytest.mark.parametrize("s", [8, 11, 16, 19])

@@ -1,6 +1,6 @@
 """The CUDA kernels K1, K2/K3 (its backward), K3b (ungrouped), K4, K5
-(the WKV6 recurrence), K5b (its backward) and K6 (the Mamba selective
-scan) against their plain PyTorch versions on the card,
+(the WKV6 recurrence), K5b (its backward), K6 (the Mamba selective
+scan) and K6b (its backward) against their plain PyTorch versions on the card,
 at small and ragged shapes.  Skips without a CUDA device.  Run on
 the machine with the card:
 
@@ -19,7 +19,10 @@ the 64-term sums.  K5b too, in f32 on both sides: each gradient within
 1e-3 relative L2 and 1e-3 * max|plain| (sums over T and over 64 terms in
 another order).  K6 is f32 on both sides (bf16 x widened first): 1e-4
 relative to max|plain|, for the order of the 16-term sums and the
-exponential's rounding.
+exponential's rounding.  K6b is f32 on both sides too: each gradient
+within 1e-3 relative L2 and 1e-3 * max|plain| (K5b's rule: sums over t,
+over channels and over 16 states in another order), and two runs give
+the same bits.
 """
 
 import numpy as np
@@ -29,7 +32,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import attention_mask, flash_attention, flash_attention_plain, kernel_readable
 from repro_torch.kernels.flash_attention.ops import _launch as k4_launch
-from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_plain
+from repro_torch.kernels.mamba_scan import ops as k6_ops
+from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_bwd, selective_scan_bwd_plain, selective_scan_plain
 from repro_torch.kernels.rwkv_wkv import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain
 from repro_torch.kernels.moe_gemm import ops as moe_gemm_ops
 from repro_torch.kernels.moe_gemm import (
@@ -660,3 +664,120 @@ def test_k6_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="dt must be f32"):
         selective_scan(x, dt.to(torch.bfloat16), bm, cm, a, d_skip)
     assert selective_scan.launches == before
+
+
+K6B_NAMES = ("dx", "ddt", "db", "dc", "da", "dd_skip", "dh0")
+
+
+def _k6b_close(got, want):
+    for name, g, w in zip(K6B_NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == torch.float32 and g.shape == w.shape and torch.isfinite(g).all(), name
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-3 and (g - w).abs().max().item() <= 1e-3 * w.abs().max().item(), (name, rel)
+
+
+def _k6b_case(rng, b, s, di, ds, x_dtype, device, carried):
+    args = _scan_inputs(rng, b, s, di, ds, x_dtype, device, carried)
+    dy = torch.from_numpy(rng.standard_normal((b, s, di)).astype(np.float32)).to(device)
+    dh = torch.from_numpy(rng.standard_normal((b, di, ds)).astype(np.float32)).to(device) if carried else None
+    return args, dy, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,di,ds,carried,x_dtype",
+    [
+        (2, 37, 200, 16, True, torch.bfloat16),  # ragged channels, a partial checkpoint chunk, h0 and dh_final
+        (1, 64, 128, 16, False, torch.float32),  # whole chunks from zeros
+        (3, 70, 384, 7, True, torch.float32),  # fewer states than the registers hold
+        (2, 1, 64, 16, True, torch.bfloat16),  # one step
+    ],
+)
+def test_k6b_kernel_matches_plain_on_card(cuda_device, b, s, di, ds, carried, x_dtype):
+    """K6b from K6's checkpoints against the explicit reverse recurrence; the checkpoints are the plain
+    forward's states before every ckpt_steps()-th step, [B, n, ds, di]."""
+    rng = np.random.default_rng(17)
+    args, dy, dh = _k6b_case(rng, b, s, di, ds, x_dtype, cuda_device, carried)
+    y, h, hck = k6_ops._launch(*args, checkpoints=True)
+    ck = k6_ops.ckpt_steps()
+    assert hck.shape == (b, -(-s // ck), ds, di)
+    x, dt, bm, cm, a, d_skip, h0 = args
+    for k in range(hck.shape[1]):
+        want = h0 if h0 is not None and k == 0 else (
+            selective_scan_plain(x[:, :ck * k], dt[:, :ck * k], bm[:, :ck * k], cm[:, :ck * k], a, d_skip, h0)[1]
+            if k else torch.zeros((b, di, ds), device=cuda_device))
+        _scan_close(hck[:, k].transpose(1, 2), want)
+    before = selective_scan_bwd.launches
+    got = selective_scan_bwd(*args[:6], dy, h0, dh, checkpoints=hck)
+    torch.cuda.synchronize()
+    assert selective_scan_bwd.launches == before + 1
+    _k6b_close(got, selective_scan_bwd_plain(*args[:6], dy, h0, dh))
+
+
+@pytest.mark.cuda
+def test_k6b_kernel_gives_the_same_bits_twice(cuda_device):
+    """The channel sums (db, dc) and the sums over b and t (da, dd_skip) go through ordered partials, no
+    atomics: two runs are equal bit for bit."""
+    rng = np.random.default_rng(18)
+    args, dy, dh = _k6b_case(rng, 4, 100, 1000, 16, torch.bfloat16, cuda_device, True)
+    _, _, hck = k6_ops._launch(*args, checkpoints=True)
+    first = selective_scan_bwd(*args[:6], dy, args[6], dh, checkpoints=hck)
+    second = selective_scan_bwd(*args[:6], dy, args[6], dh, checkpoints=hck)
+    for name, g1, g2 in zip(K6B_NAMES, first, second):
+        assert torch.equal(g1, g2), name
+
+
+@pytest.mark.cuda
+def test_selective_scan_autograd_runs_k6_and_k6b_on_card(cuda_device):
+    """Through autograd: one K6 launch with checkpoints forward, one K6b backward, gradients in the inputs'
+    dtypes equal to the plain backward's; under inference_mode and no_grad no node, no checkpoint buffer
+    and no K6b."""
+    rng = np.random.default_rng(19)
+    args, dy, dh = _k6b_case(rng, 2, 50, 256, 16, torch.bfloat16, cuda_device, True)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    fwd, bwd = selective_scan.launches, selective_scan_bwd.launches
+    y, h = selective_scan(*leaves)
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    assert (selective_scan.launches, selective_scan_bwd.launches) == (fwd + 1, bwd + 1)
+    want = selective_scan_bwd_plain(*args[:6], dy, args[6], dh)
+    for name, leaf, g in zip(K6B_NAMES, leaves, want):
+        assert leaf.grad.dtype == leaf.dtype, name
+        torch.testing.assert_close(leaf.grad.float(), g.to(leaf.dtype).float(), rtol=2e-2, atol=2e-2, msg=name)
+    calls = []
+    real = k6_ops._launch
+
+    def spy(*a_, **kw):
+        calls.append(kw.get("checkpoints", a_[8] if len(a_) > 8 else False))
+        return real(*a_, **kw)
+
+    k6_ops._launch = spy
+    try:
+        for mode in (torch.inference_mode, torch.no_grad):
+            with mode():
+                y2, _ = selective_scan(*leaves)
+            assert y2.grad_fn is None
+    finally:
+        k6_ops._launch = real
+    assert calls == [False, False] and selective_scan_bwd.launches == bwd + 1
+    with pytest.raises(ValueError, match="h_out"):
+        selective_scan(*leaves, h_out=torch.empty_like(args[6]))
+
+
+@pytest.mark.cuda
+def test_k6b_kernel_rejects_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(20)
+    args, dy, _ = _k6b_case(rng, 1, 20, 64, 16, torch.float32, cuda_device, False)
+    _, _, hck = k6_ops._launch(*args, checkpoints=True)
+    before = selective_scan_bwd.launches
+    x, dt, bm, cm, a, d_skip, _ = args
+    with pytest.raises(ValueError, match="checkpoints"):
+        selective_scan_bwd(*args[:6], dy)
+    with pytest.raises(ValueError, match="checkpoints must be f32"):
+        selective_scan_bwd(*args[:6], dy, checkpoints=hck[:, :1])
+    with pytest.raises(ValueError, match="ds="):
+        selective_scan_bwd(x, dt, torch.zeros((1, 20, 17), device=cuda_device), cm,
+                           torch.zeros((64, 17), device=cuda_device), d_skip, dy, checkpoints=hck)
+    assert selective_scan_bwd.launches == before

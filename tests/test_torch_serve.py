@@ -8,8 +8,11 @@ package's (``repro.serve``) on the same weights and requests.
   RWKV6 in f32 with weights transplanted from the JAX init;
 * the engine: tokens request by request, the device controller's
   snapshots on the reference's drift trace and its final plan, the
-  ``controller="off"`` admission and baseline cases, and RWKV with the
-  reference's padded-prefill behaviour.
+  ``controller="off"`` admission and baseline cases, RWKV with the
+  reference's padded-prefill behaviour, and Jamba (its controller, and its
+  Mamba state's padded prefill against the reference's row, within 1e-4),
+  h2o-danube (buckets a multiple of its window) and musicgen (sinusoidal
+  positions at each slot's depth).
 
 Everything runs in f32 (``COMPUTE_DTYPE`` patched on the JAX side), where
 the two packages' logits agree to ~1e-6, so greedy tokens, routing counts
@@ -424,3 +427,81 @@ def test_hierarchical_dispatch_names_m10():
     _, _, pcfg, model = _models(dispatch="hierarchical")
     with pytest.raises(NotImplementedError, match="M10"):
         ServeEngine(pcfg, model, decode_slots=2, max_len=16, buckets=(4,), device="cpu")
+
+
+# ------------------------------------------------- the thirteenth slice's configs
+def _unbatched_tokens(peng, req, table=None, prefill_table=None):
+    """One request through an unpadded batch-1 prefill and scalar decode steps."""
+    model = peng.model
+    caches = model.init_cache(1, peng.max_len, torch.float32)
+    if req.prefill_len > 0:
+        model.prefill(torch.from_numpy(req.prompt[None, :-1]), caches, schedule=prefill_table)
+    tok, got = int(req.prompt[-1]), []
+    for s in range(req.prefill_len, req.prefill_len + req.max_new_tokens):
+        logits, _ = model.decode_step(torch.tensor([tok]), caches, s, schedule=table)
+        tok = int(torch.argmax(logits, dim=-1)[0])
+        got.append(tok)
+    return got
+
+
+def test_jamba_engine_equals_jax_with_the_padded_prefill(f32):
+    """Jamba (Mamba, attention and MoE layers) under its device controller: tokens request by request,
+    the request counts and the controller's counters equal JAX's.  The Mamba layers' ``{"h", "tail"}``
+    state is copied into its slot as it is, as the reference copies its float leaves, so, like RWKV's, it
+    has absorbed the bucket's padding (ROADMAP §3): a padded prompt's row state equals the reference's
+    padded row (1e-4, f32) and differs from an unpadded prefill's; a prompt whose prefill length equals its
+    bucket gives the unbatched path's tokens."""
+    jeng, peng = _engines("jamba-1.5-large-398b", **PARITY_KW)
+    assert peng.has_controller
+    jreqs, preqs = _specs(np.random.default_rng(7), 256, [(5, 4), (9, 5), (3, 4), (8, 3)])
+    jout, pout = jeng.run(jreqs), peng.run(preqs)
+    assert pout["serve"]["requests"] == jout["serve"]["requests"]
+    assert pout["serve"]["requests"]["completed"] == len(preqs)
+    assert [r.tokens for r in preqs] == [r.tokens for r in jreqs]
+    for key in ("device_replans", "steps", "regime_warm_swaps", "host_replans"):
+        assert pout["controller"][key] == jout["controller"][key], key
+    # the padded prefill's Mamba state (h and conv tail of every Mamba layer) equals the reference's
+    # row, and differs from an unpadded prefill's: the padding went into it
+    req = preqs[3]
+    assert req.prefill_len == 7 and peng.queue.bucket_of(req.prefill_len) == 8
+    jrow, _ = jeng._prefill_row(jreqs[3], 8)
+    prow, _ = peng._prefill_row(req, 8)
+    clean = peng.model.init_cache(1, peng.max_len, torch.float32)
+    peng.model.prefill(torch.from_numpy(req.prompt[None, :-1]), clean, schedule=peng._prefill_table)
+    cfg = peng.cfg
+    mamba_layers = [l for l in range(cfg.n_layers) if cfg.layer_kind(l) == "mamba"]
+    for l in mamba_layers:
+        jh, jtail = (np.asarray(t[l // cfg.period]) for t in jrow[f"pos{l % cfg.period}"])
+        np.testing.assert_allclose(prow[l]["h"].numpy(), jh, rtol=1e-4, atol=1e-4, err_msg=f"layer {l} h")
+        np.testing.assert_allclose(prow[l]["tail"].numpy(), jtail, rtol=1e-4, atol=1e-4, err_msg=f"layer {l} tail")
+        assert (prow[l]["h"] - clean[l]["h"]).abs().max() > 1e-3, f"layer {l}: the padding left h untouched"
+    for req in preqs[:2]:  # exactly its bucket: no padding, the unbatched path's tokens
+        assert req.prefill_len == peng.queue.bucket_of(req.prefill_len)
+        assert req.tokens == _unbatched_tokens(peng, req, peng._table, peng._prefill_table)
+
+
+def test_h2o_danube_engine_equals_jax_with_window_multiple_buckets(f32):
+    """h2o-danube's sliding window (8 ring slots at smoke width) with buckets of 8 and 16, multiples of the
+    window, and requests decoding past it: no controller (no MoE), tokens equal JAX's."""
+    jeng, peng = _engines("h2o-danube-3-4b", decode_slots=2, max_len=32, buckets=(8, 16))
+    assert not peng.has_controller and peng.model.cfg.sliding_window == 8
+    jreqs, preqs = _specs(np.random.default_rng(8), 256, [(9, 6), (17, 10), (5, 12), (16, 4)])
+    jout, pout = jeng.run(jreqs), peng.run(preqs)
+    assert pout["serve"]["requests"] == jout["serve"]["requests"]
+    assert pout["serve"]["requests"]["completed"] == len(preqs)
+    assert [r.tokens for r in preqs] == [r.tokens for r in jreqs]
+
+
+def test_musicgen_engine_equals_jax_with_per_slot_positions(f32):
+    """musicgen-large's sinusoidal positions at each slot's own depth ([B] steps); no frontend prefix in
+    the engine (the reference engine takes no ``ext_embeds``): tokens equal JAX's, and each request's equal
+    its unbatched decode wherever its prefill filled its bucket."""
+    jeng, peng = _engines("musicgen-large", decode_slots=2, max_len=32, buckets=(4, 8))
+    assert not peng.has_controller and peng.model.cfg.pos_embedding == "sinusoidal"
+    jreqs, preqs = _specs(np.random.default_rng(9), 256, [(3, 5), (9, 4), (5, 6), (2, 3)])
+    jout, pout = jeng.run(jreqs), peng.run(preqs)
+    assert pout["serve"]["requests"] == jout["serve"]["requests"]
+    assert pout["serve"]["requests"]["completed"] == len(preqs)
+    assert [r.tokens for r in preqs] == [r.tokens for r in jreqs]
+    for req in preqs:
+        assert req.tokens == _unbatched_tokens(peng, req), req.rid
