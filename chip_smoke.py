@@ -247,6 +247,42 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    plain version and K6's forward with and without checkpoints; one more
    step of each traced by kernel group.  Phases 11 and 13 share
    ``train_step_vs_plain`` and ``train_and_check``.
+14. expert parallelism across ranks (``parallel.sharding``,
+   ``parallel.collectives``, the fabrics): 4 ranks spawned on the one
+   card, gloo with CUDA tensors (NCCL refuses ranks sharing a card), the
+   kernels built by this process first.  14a: one full-width Mixtral MoE
+   layer (8 experts of 4096 x 14336, top-2, ``EP_CAPACITY`` as JAX's
+   parity matrix), x [4, 2048, 4096] bf16 (2048 tokens a rank, 2 experts a
+   rank), forward and backward on ``dense`` (its EP form), ``a2a``,
+   ``ppermute`` (a max-weight plan of the real routing), ``phase_pipelined``
+   and ``ragged_a2a`` (that plan's table row) and ``faulty:phase_pipelined``
+   (a dead link the plan made under its mask avoids: equal to the
+   unwrapped fabric bit for bit; one the plan routes: refused with
+   ``FabricFaultError``): each against one process's dense fabric on the
+   whole layer (each rank computes it in turn; K1/K2/K3 in both): the
+   output within K1's tolerance, each expert's gradients and the router's
+   and the input's partial gradients summed over the ranks within
+   ``GRAD_REL_TOL`` relative L2 (a fabric sums an expert's bf16 gradient
+   over several launches, the reference rounds one sum); ``routing`` summed
+   over the ranks equal to the reference's, nothing dropped, ``ragged_a2a``
+   equal to ``phase_pipelined`` bit for bit, every K1 launch and every
+   K2/K3 launch pair of every fabric call on every rank held against the
+   plain versions on its own inputs afterwards, a rank at a time (K1 and
+   K2 within ``BF16_TOL``, K3 within ``WGRAD_REL_L2``/``WGRAD_MAX_REL``,
+   as in phase 5), K1/K2/K3 launches and holds exact on every rank, the slots each rank sent against the
+   fabric's ``dispatch_tokens`` (``phase_pipelined``: its emulation's
+   ``dispatch_tokens_padded``); ms a forward layer call.  14b: the launcher
+   (``serve``) across the 4 ranks, 2-layer full-width Mixtral-8x7B under
+   ``phase_pipelined`` with the controller (B = 4, prompt 256, 8 new
+   tokens, 2 rounds, capacity 1.25): every rank's tokens and tables equal,
+   decode on the dense fabric's EP form (the layer-call counter), K1 held
+   per layer on rank 0 in a prefill of round 0 that must give the served
+   logits bit for bit, K1/K4 launches exact, and the first prefill's
+   logits against one process's run of the same seeded model with the
+   EP run's sources (the sequence chunks) in its admission and a bucket
+   that cuts nothing (``EP_CAPACITY``; neither run may cut a choice),
+   within ``LOGITS_REL_TOL`` per row.  Every time is labelled as ranks sharing
+   one card over gloo, staged through host memory: not a fabric's time.
 
 It prints K4's extra numbers and K2's/K3's per-launch times (with the
 dgrad launch's library time and bound) one a line beside the card's name
@@ -402,6 +438,14 @@ SCAN_BWD_TOL = 1e-3
 # the special-function units' exponentials: 16 a clock an SM, 132 SMs, at the 1.98 GHz boost clock (H100 SXM)
 EXP_PER_S = 16 * 132 * 1.98e9
 
+# phase 14: expert parallelism across EP_RANKS ranks sharing the card over gloo.  14a: one full-width Mixtral MoE
+# layer, x [EP_B, EP_S, 4096] (2048 tokens a rank) at JAX's parity-matrix capacity factor (tests/multidev_fabric.py),
+# EP_TIMED forward calls timed a fabric; 14b: 2 full-width layers served (B, prompt, new tokens, rounds)
+EP_RANKS, EP_B, EP_S, EP_CAPACITY, EP_TIMED, EP_SEED = 4, 4, 2048, 8.0, 2, 11
+EP_SERVE = dict(batch=4, prompt_len=256, new_tokens=8, rounds=2)
+EP_SERVE_LAYERS, EP_TIMEOUT_S = 2, 480
+EP_LABEL = "4 ranks sharing one H100 over gloo, staged through host memory: not a fabric's time"
+
 # the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
 ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
 
@@ -457,6 +501,484 @@ def tensor_map_encode_us(t, reps: int = 2000) -> float:
     for _ in range(reps):
         enc(*args)
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+# ---------------------------------------------------------------- phase 14 (the ranks' side)
+def _bf16_err(out, ref, what: str) -> float:
+    """max |out - ref|, raising past BF16_TOL + BF16_TOL * |ref| (K1's tolerance)."""
+    out, ref = out.float(), ref.float()
+    if not bool(out.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite")
+    err = (out - ref).abs()
+    if float((err - BF16_TOL * ref.abs()).max()) > BF16_TOL:
+        raise AssertionError(f"{what}: max |diff| {float(err.max()):.4g} beyond {BF16_TOL} + {BF16_TOL}*|ref|")
+    return float(err.max())
+
+
+def _grad_rel(out, ref, what: str) -> float:
+    """Relative L2 of a gradient leaf, raising past GRAD_REL_TOL (the train
+    step's per-leaf rule): a fabric splits an expert's tokens over several
+    K1/K3 launches whose bf16 gradients are summed, where the reference
+    rounds one sum, so elementwise bounds do not hold where the parts cancel."""
+    out, ref = out.float(), ref.float()
+    if not bool(out.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite")
+    rel = float((out - ref).norm() / ref.norm().clamp_min(1e-30))
+    if rel > GRAD_REL_TOL:
+        raise AssertionError(f"{what}: relative L2 {rel:.4g} beyond {GRAD_REL_TOL}")
+    return rel
+
+
+def _wgrad_err(out, ref, what: str) -> float:
+    """K3 against its plain version, phase 5's per-launch rule: relative L2
+    within WGRAD_REL_L2 and max |diff| within WGRAD_MAX_REL * max |ref|
+    (so exact zeros where the plain version is all zero); the relative L2."""
+    out, ref = out.float(), ref.float()
+    if not bool(out.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite")
+    rel = float((out - ref).norm() / ref.norm().clamp_min(1e-30))
+    err = float((out - ref).abs().max())
+    if rel > WGRAD_REL_L2 or err > WGRAD_MAX_REL * float(ref.abs().max()):
+        raise AssertionError(f"{what}: rel L2 {rel:.3g} (tol {WGRAD_REL_L2}), max |diff| {err:.4g} "
+                             f"(tol {WGRAD_MAX_REL} * max|plain| = {WGRAD_MAX_REL * float(ref.abs().max()):.4g})")
+    return rel
+
+
+def _hold_in_turns(world, records: list, what: str) -> dict:
+    """Hold each recorded K1 launch and each K2/K3 launch pair of a fabric
+    call against the plain versions on the same inputs, one rank at a time
+    (the plain versions' f32 scratch on a [2, 16384, 14336] block is ~2 GB
+    a tensor): per kernel the number held and the largest error (K1, K2:
+    max |diff|; K3: relative L2)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.moe_gemm import ops as k1
+
+    held = {"k1": [], "k2": [], "k3": []}
+    for turn in range(world.n):
+        if turn == world.me:
+            with torch.no_grad():
+                for i, (kind, args, out) in enumerate(records):
+                    tag = f"{what}, launch {i}"
+                    if kind == "k1":
+                        held["k1"].append(_bf16_err(out, k1.moe_gemm_plain(*args), f"K1 vs plain, {tag}"))
+                        continue
+                    held["k2"].append(_bf16_err(out[0], k1.moe_gemm_dgrad_plain(*args), f"K2 vs plain, {tag}"))
+                    held["k3"].append(max(_wgrad_err(a, b, f"K3 {n} vs plain, {tag}") for a, b, n in
+                                          zip(out[1:], k1.moe_gemm_wgrad_plain(*args), ("dwg", "dwu", "dwd"))))
+            records.clear()
+            torch.cuda.empty_cache()
+        dist.barrier(group=world.model_group)
+    return {k: {"n": len(v), "max": max(v, default=0.0)} for k, v in held.items()}
+
+
+def _ep_layer_call(p, cfg, x, schedule, world, *, share: float, hold: str | None = None) -> dict:
+    """One counted forward and backward of the MoE layer (loss ``share *
+    sum(y**2)``): y, the gradients, stats, K1/K2/K3 launches, the slots
+    sent and the layer calls by path.  With ``hold`` (the call's name)
+    every K1 launch and every K2/K3 launch pair of the call is recorded
+    and then held against the plain versions (``_hold_in_turns``)."""
+    import torch
+    from repro_torch.kernels.moe_gemm import ops as k1
+    from repro_torch.models import moe as pmoe
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import ep_world
+
+    x = x.detach().clone().requires_grad_(True)
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        getattr(p, name).requires_grad_(True)
+        getattr(p, name).grad = None
+    counters = {"k1": k1.moe_gemm, "k2": k1.moe_gemm_dgrad, "k3": k1.moe_gemm_wgrad}
+    records = []
+    real_fwd, real_bwd = k1._forward, k1._backward
+
+    # the counted launch, then its inputs (saved for the backward: autograd refuses an in-place change) and a
+    # copy of its outputs (autograd may sum later gradients into them) kept for the hold
+    def rec_fwd(*args):
+        out = real_fwd(*args)
+        records.append(("k1", args, out.clone()))
+        return out
+
+    def rec_bwd(*args):
+        out = real_bwd(*args)
+        records.append(("k2k3", args, tuple(t.clone() for t in out)))
+        return out
+
+    for fn in counters.values():
+        fn.launches = 0
+    col.SLOTS_SENT[0] = 0
+    pmoe.PATH_CALLS.clear()
+    with ep_world(world), mock.patch.object(k1, "_forward", rec_fwd if hold else real_fwd), \
+            mock.patch.object(k1, "_backward", rec_bwd if hold else real_bwd):
+        y, stats = pmoe.moe_apply(p, cfg, x, schedule=schedule, return_stats=True)
+        slots = col.SLOTS_SENT[0]
+        (share * (y.float() ** 2).sum()).backward()
+    torch.cuda.synchronize()
+    out = {"y": y.detach(), "dx": x.grad, "stats": {k: v.detach() for k, v in stats.items()}, "slots": slots,
+           "launches": {k: fn.launches for k, fn in counters.items()}, "paths": dict(pmoe.PATH_CALLS)}
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        out[name] = getattr(p, name).grad
+        getattr(p, name).grad = None
+        getattr(p, name).requires_grad_(False)
+    if hold:
+        out["held"] = _hold_in_turns(world, records, hold)
+    return out
+
+
+def _ep_layer(world) -> dict:
+    """Phase 14a on this rank: the reference in turn, then every fabric."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import FabricFaultError, FaultScenario, ScheduleTable, decompose, plan_schedule
+    from repro_torch.models import moe as pmoe
+    from repro_torch.parallel.fabric import FABRICS, wrap_faulty
+    from repro_torch.parallel.sharding import ep_world
+
+    dev, n, me = world.device, world.n, world.me
+    base = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(base, n_layers=1, moe=dataclasses.replace(base.moe, capacity_factor=EP_CAPACITY))
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(EP_SEED)
+    full = pmoe.moe_init(cfg, gen=gen, device=dev, dtype=torch.bfloat16)
+    x = torch.randn((EP_B, EP_S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    lo, hi = world.expert_range(m.n_experts)
+    p = pmoe.moe_init(cfg, gen=None, device=dev, dtype=torch.bfloat16, experts=(lo, hi))
+    with torch.no_grad():
+        p.router.copy_(full.router)
+        for name in ("w_gate", "w_up", "w_down"):
+            getattr(p, name).copy_(getattr(full, name)[lo:hi])
+    # the reference: one process's dense fabric on the whole layer, each rank in turn (it holds every expert
+    # and the [8, C, F] scratch of C = 16384 slots), the loss share 1
+    ref = None
+    for turn in range(n):
+        if turn == me:
+            dcfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, dispatch="dense"))
+            r = _ep_layer_call(full, dcfg, x, None, None, share=1.0)
+            ref = {"y": r["y"], "dx": r["dx"].float(), "router": r["router"].float(),
+                   "routing": r["stats"]["routing"].sum(0), "launches": r["launches"],
+                   **{k: r[k][lo:hi].clone() for k in ("w_gate", "w_up", "w_down")}}
+            del r
+            torch.cuda.empty_cache()  # hand the reference's scratch back before the next rank's turn
+        dist.barrier(group=world.model_group)
+    del full
+    torch.cuda.empty_cache()
+
+    # the real routing's traffic (every rank routes every chunk, identically) and its max-weight plan
+    s_loc = EP_S // n
+    traffic = np.zeros((n, n))
+    with torch.no_grad():
+        for i in range(n):
+            idx, _ = pmoe._router(p, cfg, x[:, i * s_loc:(i + 1) * s_loc].reshape(-1, cfg.d_model))
+            np.add.at(traffic[i], (idx.cpu().numpy().ravel() // (m.n_experts // n)), 1)
+    plan = plan_schedule(decompose(traffic, "maxweight"), slack=1.5)
+    table = ScheduleTable.from_schedules([plan], k_max=n, clip=True, envelope="auto", device=dev)
+    routed = next((i, int(plan.perms[k, i])) for k in range(plan.num_phases) for i in range(n) if plan.valid[k, i])
+    seed = next(s for s in range(500)
+                if FaultScenario("dead_link", n_ranks=n, onset=0, n_links=1, seed=s).dead_pairs == (routed,))
+    scenario = FaultScenario("dead_link", n_ranks=n, onset=0, n_links=1, seed=seed)
+    masked = plan_schedule(decompose(traffic, "maxweight", link_mask=scenario.link_mask(0)), slack=1.5)
+    masked_row = ScheduleTable.from_schedules([masked], k_max=n, clip=True, envelope="auto", device=dev).row(0)
+    faulty = wrap_faulty("phase_pipelined", scenario)
+    cases = {"dense": ("dense", None), "a2a": ("a2a", None), "ppermute": ("ppermute", plan),
+             "phase_pipelined": ("phase_pipelined", table.row(0)), "ragged_a2a": ("ragged_a2a", table.row(0)),
+             faulty: (faulty, masked_row)}
+    # unequal loss shares summing to 1 (a wrong all-gather backward shows), powers of two so that each rank's
+    # bf16 cotangent is the whole one scaled exactly: 1/2, 1/4, ..., the last two alike
+    share = 2.0 ** -min(me + 1, n - 1)
+    rows, kept = {}, {}
+    try:
+        for case, (dispatch, sched) in cases.items():
+            ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, dispatch=dispatch))
+            what = f"phase 14a {case} rank {me}"
+            r = _ep_layer_call(p, ccfg, x, sched, world, share=share, hold=what)
+            row = {"slots": r["slots"], "launches": r["launches"], "paths": r["paths"], "held": r["held"]}
+            # the wrapper runs the plan made under its mask, which clips the dead pair's choices: it is held
+            # against the unwrapped fabric on that row below, not against the reference
+            for name in (() if case == faulty else ("w_gate", "w_up", "w_down")):
+                row[f"d{name}_rel_l2"] = _grad_rel(r[name], ref[name], f"{what} d{name}")
+                row[f"d{name}_err"] = float((r[name].float() - ref[name].float()).abs().max())
+            if case != faulty:
+                row["y_err"] = _bf16_err(r["y"], ref["y"], f"{what} output")
+            for name in (() if case == faulty else ("router", "dx")):
+                part = r[name].float().contiguous()
+                dist.all_reduce(part, group=world.model_group)
+                row[f"d{name}_rel_l2"] = _grad_rel(part, ref[name], f"{what} d{name} summed over the ranks")
+                row[f"d{name}_err"] = float((part - ref[name]).abs().max())
+            st = r["stats"]
+            if not torch.equal(st["routing"].sum(0), ref["routing"]):
+                raise AssertionError(f"{what}: routing summed over the ranks differs from the reference's")
+            if float(st["dropped"].sum()) != 0.0:
+                raise AssertionError(f"{what}: {float(st['dropped'].sum())} admitted choices dropped")
+            if case in ("phase_pipelined", "ragged_a2a", faulty):
+                kept[case] = {k: r[k] for k in ("y", "dx", "router", "w_gate", "w_up", "w_down")}
+            # ms a forward layer call: every rank starts together, the slowest sets the pace
+            times = []
+            with torch.no_grad(), ep_world(world):
+                for _ in range(EP_TIMED):
+                    dist.barrier(group=world.model_group)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pmoe.moe_apply(p, ccfg, x, schedule=sched)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            row["ms"] = float(np.median(times))
+            rows[case] = row
+            del r
+            torch.cuda.empty_cache()
+        for key, a in kept["ragged_a2a"].items():
+            if not torch.equal(a, kept["phase_pipelined"][key]):
+                raise AssertionError(f"phase 14a rank {me}: ragged_a2a's {key} differs from phase_pipelined's")
+        # the wrapper's pass through equals the unwrapped fabric on the same (masked) row, bit for bit
+        pcfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, dispatch="phase_pipelined"))
+        plain = _ep_layer_call(p, pcfg, x, masked_row, world, share=share)
+        for key, a in kept[faulty].items():
+            if not torch.equal(a, plain[key]):
+                raise AssertionError(f"phase 14a rank {me}: {faulty}'s {key} differs from phase_pipelined's")
+        rows[faulty]["masked_admitted"] = float(plain["stats"]["admitted"].sum())
+        rows[faulty]["masked_routed"] = float(plain["stats"]["routing"].sum())
+        del plain, kept
+        # the routed dead pair: refused before anything moves
+        fcfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, dispatch=faulty))
+        try:
+            with ep_world(world):
+                pmoe.moe_apply(p, fcfg, x, schedule=table.row(0))
+            raise AssertionError(f"phase 14a rank {me}: {faulty} ran a plan through a dark link")
+        except FabricFaultError as e:
+            refused = {"message": str(e), "backend": e.backend, "pair": e.pair, "phase": e.phase,
+                       "next_fabric": e.next_fabric}
+    finally:
+        FABRICS.pop(faulty, None)
+    return {"rows": rows, "refused": refused, "routed": routed, "ref_launches": ref["launches"],
+            "plan": plan, "envelope": table.envelope, "env_slots": table.envelope_slots(m.n_experts // n),
+            "t_local": EP_B * s_loc, "e_local": m.n_experts // n}
+
+
+def _ep_serve(world) -> dict:
+    """Phase 14b on this rank: ``serve`` across the world, then a prefill
+    of round 0 with K1 held per layer (rank 0) that must give the served
+    logits bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.kernels.moe_gemm import ops as k1
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+    from repro_torch.models import moe as pmoe
+    from repro_torch.parallel.sharding import ep_world
+
+    dev, me = world.device, world.me
+    base = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(base, n_layers=EP_SERVE_LAYERS, moe=dataclasses.replace(base.moe, dispatch="phase_pipelined"))
+    model = Model(cfg, device=dev, seed=EP_SEED, expert_shard=(me, world.n))
+    torch.cuda.synchronize()
+    counters = {"moe_gemm_grouped": k1.moe_gemm, "flash_attention_fwd": k4.flash_attention,
+                "moe_gemm_grouped_dgrad": k1.moe_gemm_dgrad, "moe_gemm_grouped_wgrad": k1.moe_gemm_wgrad}
+    for fn in counters.values():
+        fn.launches = 0
+    pmoe.PATH_CALLS.clear()
+    res = serve(model, controller=True, drift="none", world=world, **EP_SERVE)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    paths = dict(pmoe.PATH_CALLS)
+    # round 0's prefill again, K1 held against its plain version per layer on rank 0 (comparisons: not counted)
+    held = []
+    real = k1.moe_gemm
+
+    def held_k1(xb, wg, wu, wd, rv):
+        out = k1._launch(xb, wg, wu, wd, rv)
+        held.append(_bf16_err(out, k1.moe_gemm_plain(xb, wg, wu, wd, rv), f"K1 in layer {len(held)} (rank 0)"))
+        return out
+
+    table0 = res.tables[0].clone(dev)
+    prompts = res.prompts[0].to(dev)
+    with ep_world(world), mock.patch.object(k1, "moe_gemm", held_k1 if me == 0 else real):
+        logits, _, stats = model.prefill(prompts, model.init_cache(prompts.shape[0], prompts.shape[1]),
+                                         schedule=table0, collect_stats=True)
+    if not torch.equal(logits.cpu(), res.first_logits):
+        raise AssertionError(f"phase 14b rank {me}: the held prefill's logits differ from the served round 0's")
+    return {"tokens": res.tokens, "first_logits": res.first_logits, "prompts": res.prompts, "tables": res.tables,
+            "prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms, "plan_ms": res.plan_ms,
+            "moe_by_round": res.moe_by_round, "launches": launches, "paths": paths, "k1_held": held,
+            "prefill_stats": {k: v.cpu() for k, v in stats.items()}, "table_envelope": table0.envelope}
+
+
+def ep_rank(world) -> dict:
+    """Phase 14 on one of the ranks ``spawn_world`` starts."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layer = _ep_layer(world)
+    torch.cuda.empty_cache()
+    return {"layer": layer, "serve": _ep_serve(world)}
+
+
+def ep_phase(dev, card: str, counted) -> tuple:
+    """Phase 14 on this process's side: spawn the ranks (``ep_rank``), hold
+    what they return, run 14b's one-process reference, print the phase's
+    lines; returns (14a launches, 14b launches, 14a rows, K1/K2/K3's largest
+    errors against their plain versions, 14b's numbers), launches keyed like ``counted``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.parallel.fabric import geometry as geom
+    from repro_torch.parallel.fabric import get_fabric
+    from repro_torch.parallel.sharding import spawn_world, world_backend
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = world_backend(dev, EP_RANKS, torch.cuda.device_count())
+    print(f"phase 14: {EP_RANKS} ranks on {torch.cuda.device_count()} card(s): backend {backend}; no collective is "
+          f"staged by the port (gloo copies CUDA tensors through host memory itself) ({card})")
+    try:
+        ranks = spawn_world(ep_rank, EP_RANKS, device="cuda", timeout_s=EP_TIMEOUT_S, init_timeout_s=120)
+    except Exception as e:  # a rank's failure (its traceback), a dead rank or the timeout
+        fail(f"phase 14: {e}")
+    t_world = time.perf_counter() - t_phase
+    ep_layer_launches, ep_serve_launches = dict.fromkeys(counted, 0), dict.fromkeys(counted, 0)
+
+    # 14a: launches, slots and the refusal, per rank
+    lay0 = ranks[0]["layer"]
+    e_local, plan, env_slots = lay0["e_local"], lay0["plan"], lay0["env_slots"]
+    live = sum(1 for v in env_slots if v)
+    faulty_name = next(c for c in lay0["rows"] if c.startswith("faulty:"))
+    k1_per_call = {"dense": 1, "a2a": 1, "ppermute": 1, "phase_pipelined": live + 1, "ragged_a2a": live + 1,
+                   faulty_name: live + 1}
+    for r, rank in enumerate(ranks):
+        lay = rank["layer"]
+        for case, row in lay["rows"].items():
+            want = k1_per_call[case]
+            if row["launches"] != {"k1": want, "k2": want, "k3": want}:
+                fail(f"phase 14a {case} rank {r}: K1/K2/K3 launched {row['launches']}, expected {want} each")
+            held_n = {k: v["n"] for k, v in row["held"].items()}
+            if held_n != {"k1": want, "k2": want, "k3": want}:
+                fail(f"phase 14a {case} rank {r}: K1/K2/K3 held against their plain versions {held_n} times, "
+                     f"expected {want} each")
+            path = "dense_ep" if case == "dense" else case
+            if row["paths"] != {path: 1}:
+                fail(f"phase 14a {case} rank {r}: layer calls {row['paths']}, expected one on {path}")
+            for key, name in (("k1", "moe_gemm_grouped"), ("k2", "moe_gemm_grouped_dgrad"), ("k3", "moe_gemm_grouped_wgrad")):
+                ep_layer_launches[name] += row["launches"][key]
+        ref_ = lay["refused"]
+        if (ref_["backend"], tuple(ref_["pair"]), ref_["next_fabric"]) != ("phase_pipelined", tuple(lay["routed"]), "a2a"):
+            fail(f"phase 14a rank {r}: the routed dead link was refused as {ref_}")
+    cap_pair = e_local * geom.round8(math.ceil(lay0["t_local"] * 2 / (EP_RANKS * e_local) * EP_CAPACITY))
+    phase_caps = geom.round8(-(-plan.caps.astype(np.int64) // e_local))
+    env = e_local * np.asarray(env_slots)
+    models = {
+        "dense": ("dispatch_tokens", get_fabric("dense").dispatch_tokens(n=EP_RANKS)),
+        "a2a": ("dispatch_tokens", get_fabric("a2a").dispatch_tokens(n=EP_RANKS, cap_uniform=cap_pair)),
+        "ppermute": ("dispatch_tokens", get_fabric("ppermute").dispatch_tokens(
+            n=EP_RANKS, schedule=dataclasses.replace(plan, caps=e_local * phase_caps))),
+        "phase_pipelined": ("dispatch_tokens_padded", get_fabric("phase_pipelined").dispatch_tokens_padded(
+            n=EP_RANKS, envelope=env)),
+        "ragged_a2a": ("dispatch_tokens", get_fabric("ragged_a2a").dispatch_tokens(n=EP_RANKS, schedule=plan, envelope=env)),
+    }
+    models[faulty_name] = ("none (the plan made under the link mask is not the modelled one)", None)
+    ep_rows = {}
+    for case in lay0["rows"]:
+        rows_ = [rank["layer"]["rows"][case] for rank in ranks]
+        sent = float(np.mean([row["slots"] for row in rows_]))
+        kind, model_slots = models[case]
+        if model_slots is not None and sent != model_slots:
+            fail(f"phase 14a {case}: the ranks sent {sent} slots each on average, {kind} says {model_slots}")
+        ep_rows[case] = {
+            "ms": max(row["ms"] for row in rows_), "slots_sent_per_rank": sent, "model": kind, "model_slots": model_slots,
+            **{key: max(row[key] for row in rows_) for key in rows_[0] if key.endswith(("_err", "_rel_l2"))},
+        }
+        e_ = ep_rows[case]
+        if case == faulty_name:
+            print(f"phase 14a {case}: {e_['ms']:.1f} ms a forward layer call (the slowest rank's median of {EP_TIMED}) | "
+                  f"{sent:.0f} slots sent a rank | {EP_LABEL} ({card})")
+            continue
+        print(f"phase 14a {case}: {e_['ms']:.1f} ms a forward layer call (the slowest rank's median of {EP_TIMED}) | "
+              f"{sent:.0f} slots sent a rank ({kind} {model_slots:.0f}) | y max err {e_['y_err']:.4g} | gradients rel L2 "
+              f"(max err): dx {e_['ddx_rel_l2']:.3g} ({e_['ddx_err']:.3g}), router {e_['drouter_rel_l2']:.3g} "
+              f"({e_['drouter_err']:.3g}), w_gate {e_['dw_gate_rel_l2']:.3g} ({e_['dw_gate_err']:.3g}), w_up "
+              f"{e_['dw_up_rel_l2']:.3g}, w_down {e_['dw_down_rel_l2']:.3g} | {EP_LABEL} ({card})")
+    ep_held = {k: max(row["held"][k]["max"] for rank in ranks for row in rank["layer"]["rows"].values())
+               for k in ("k1", "k2", "k3")}
+    print(f"phase 14a: every K1 launch and K2/K3 launch pair of every fabric call on every rank held against the "
+          f"plain versions on its inputs: K1 max err {ep_held['k1']:.4g}, K2 max err {ep_held['k2']:.4g} (tol "
+          f"{BF16_TOL} + {BF16_TOL}*|plain|), K3 rel L2 {ep_held['k3']:.3g} (tol {WGRAD_REL_L2}, max |diff| "
+          f"{WGRAD_MAX_REL}*max|plain|); ragged_a2a equal to phase_pipelined bit for bit; {faulty_name} with the masked plan equal to "
+          f"phase_pipelined bit for bit (admitted {lay0['rows'][faulty_name]['masked_admitted']:.0f} of "
+          f"{lay0['rows'][faulty_name]['masked_routed']:.0f} choices), the routed dead link {tuple(lay0['routed'])} refused: "
+          f"{lay0['refused']['message'][:160]} ({card})")
+
+    # 14b: every rank's tokens and tables, the paths, the launches, then the one-process run
+    srv = [rank["serve"] for rank in ranks]
+    s0 = srv[0]
+    rounds_, new_, layers_ = EP_SERVE["rounds"], EP_SERVE["new_tokens"], EP_SERVE_LAYERS
+    for r, sv in enumerate(srv):
+        if not torch.equal(sv["tokens"], s0["tokens"]):
+            fail(f"phase 14b: rank {r}'s tokens differ from rank 0's")
+        for t_r, t0_ in zip(sv["tables"], s0["tables"]):
+            if not tables_equal(t_r, t0_):
+                fail(f"phase 14b: rank {r}'s table differs from rank 0's")
+        if sv["paths"] != {"phase_pipelined": rounds_ * layers_, "dense_ep": rounds_ * new_ * layers_}:
+            fail(f"phase 14b rank {r}: layer calls {sv['paths']}: prefill on the fabric, decode on the dense EP form expected")
+        live_r = [sum(1 for v in t.envelope_slots(e_local) if v) for t in sv["tables"]]
+        want_k1 = sum(layers_ * (lv + 1) for lv in live_r) + rounds_ * new_ * layers_
+        want = {"moe_gemm_grouped": want_k1, "flash_attention_fwd": rounds_ * layers_,
+                "moe_gemm_grouped_dgrad": 0, "moe_gemm_grouped_wgrad": 0}
+        if sv["launches"] != want:
+            fail(f"phase 14b rank {r}: launches {sv['launches']}, expected {want}")
+        for name, v in sv["launches"].items():
+            ep_serve_launches[name] += v
+    live0 = sum(1 for v in s0["tables"][0].envelope_slots(e_local) if v)
+    if len(s0["k1_held"]) != layers_ * (live0 + 1):
+        fail(f"phase 14b: K1 held {len(s0['k1_held'])} times on rank 0, expected {live0 + 1} launches a layer")
+    scfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=EP_SERVE_LAYERS,
+                               moe=dataclasses.replace(get_config("mixtral-8x7b").moe, dispatch="phase_pipelined"))
+    # the one-process run drops nothing either: its capacity-factor bucket spans all B x S tokens of an expert,
+    # where an EP rank's buckets hold its own chunk (the parity matrix's factor; the seeded weights are the same)
+    one = Model(dataclasses.replace(scfg, moe=dataclasses.replace(scfg.moe, capacity_factor=EP_CAPACITY)), device=dev,
+                seed=EP_SEED)
+    prompts0, table0 = s0["prompts"][0].to(dev), s0["tables"][0].clone(dev)
+    bsz, seq = prompts0.shape
+    real_adm = geom.admission_mask
+
+    def ep_sources(idx, gates, row, n_experts, *, src):
+        """The EP run's sources: token (b, s) on the rank whose sequence chunk holds s."""
+        tok = torch.arange(idx.numel(), device=idx.device) // idx.shape[-1]
+        return real_adm(idx, gates, row, n_experts, src=(tok % seq) // (seq // row.n))
+
+    with mock.patch.object(geom, "admission_mask", ep_sources):
+        one_logits, _, one_st = one.prefill(prompts0, one.init_cache(bsz, seq), schedule=table0, collect_stats=True)
+    ep_st = s0["prefill_stats"]
+    if float(ep_st["dropped"].sum()) or float(one_st["dropped"].sum()):
+        fail(f"phase 14b: choices cut at the buckets (EP {ep_st['dropped'].sum(-1).tolist()}, one process "
+             f"{one_st['dropped'].sum(-1).tolist()} a layer): the two runs are comparable only when neither cuts one")
+    if not torch.equal(ep_st["routing"][0].sum(0), one_st["routing"][0].sum(0).cpu()) or \
+            float(ep_st["admitted"][0].sum()) != float(one_st["admitted"][0].sum()):
+        fail(f"phase 14b: layer 0's routing or admission differs from the one-process run's "
+             f"(admitted {float(ep_st['admitted'][0].sum())} vs {float(one_st['admitted'][0].sum())})")
+    a_, b_ = s0["first_logits"].to(dev).float(), one_logits.float()
+    ep_rel = float(((a_ - b_).norm(dim=-1) / b_.norm(dim=-1)).max())
+    if ep_rel > LOGITS_REL_TOL:
+        fail(f"phase 14b: the first prefill's logits differ from the one-process run's by {ep_rel:.4g} per-row "
+             f"relative L2 (tol {LOGITS_REL_TOL}); dropped a layer (EP) {ep_st['dropped'].sum(-1).tolist()}, (one "
+             f"process) {one_st['dropped'].sum(-1).tolist()}; admitted {ep_st['admitted'].sum(-1).tolist()}, "
+             f"{one_st['admitted'].sum(-1).tolist()}")
+    del one, one_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_serve = {"prefill_ms": s0["prefill_ms"], "decode_ms_per_step": [ms / new_ for ms in s0["decode_ms"]],
+                "plan_ms": s0["plan_ms"], "moe_by_round": s0["moe_by_round"], "k1_held_max_err": max(s0["k1_held"]),
+                "logits_rel_l2_vs_one_process": ep_rel,
+                "dropped_first_prefill": [float(ep_st["dropped"].sum()), float(one_st["dropped"].sum())]}
+    print(f"phase 14b: {EP_SERVE_LAYERS}-layer full-width Mixtral-8x7B across {EP_RANKS} ranks (phase_pipelined, "
+          f"controller): tokens and tables equal on every rank; decode on the dense EP form "
+          f"({s0['paths']['dense_ep']} layer calls); K1 held per layer on rank 0 (max err {max(s0['k1_held']):.4g}); "
+          f"first prefill's logits vs the one-process run with the EP sources: per-row rel L2 {ep_rel:.4g} (tol "
+          f"{LOGITS_REL_TOL}); dropped (EP, one process) {ep_serve['dropped_first_prefill']}")
+    print(f"phase 14b: prefill {[round(v, 1) for v in s0['prefill_ms']]} ms a round, decode "
+          f"{[round(v, 2) for v in ep_serve['decode_ms_per_step']]} ms a step, plan {[round(v, 1) for v in s0['plan_ms']]}"
+          f" ms | {EP_LABEL} ({card})")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s wall, the world {t_world:.1f} s ({card})")
+
+    return ep_layer_launches, ep_serve_launches, ep_rows, ep_held, ep_serve
 
 
 def main() -> None:
@@ -2981,6 +3503,10 @@ def main() -> None:
         fail("phase 13: no Mamba layer trained, so K6b was never held")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s wall ({card})")
 
+    # 14. expert parallelism across EP_RANKS ranks sharing the card (gloo with CUDA tensors); the kernels were
+    # built above, so the ranks only load them
+    ep_layer_launches, ep_serve_launches, ep_rows, ep_held, ep_serve = ep_phase(dev, card, COUNTED)
+
     # the kernels line, then the result line
     path_launches = {
         name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
@@ -2989,7 +3515,8 @@ def main() -> None:
                "rwkv_serve": rwkv_launches[name], "rwkv_long_500k": long_launches[name],
                "rwkv_train": rwkv_train_launches[name], "slice12": slice12_launches[name],
                "slice12_engine": engine12_launches[name], "slice12_long_500k": long12_launches[name],
-               "train13": train13_launches[name]}
+               "train13": train13_launches[name], "ep_layer": ep_layer_launches[name],
+               "ep_serve": ep_serve_launches[name]}
         for name in COUNTED
     }
     kernels = [
@@ -3000,6 +3527,8 @@ def main() -> None:
             launches_by_path=path_launches["moe_gemm_grouped"],
             **{key: k1_rows["prefill"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")},
             shape=k1_rows["prefill"]["shape"], decode=k1_rows["decode"], knee=knee, wire_codecs=wire_out,
+            ep={"label": EP_LABEL, "layer": ep_rows, "k1_held_max_err": ep_held["k1"], "k2_held_max_err": ep_held["k2"],
+                "k3_held_rel_l2": ep_held["k3"], "serve": ep_serve},
             **{arch: arch_rows[arch]["moe_gemm_grouped"] for arch in ARCHS}, **s12_k1,
         ),
         dict(

@@ -18,8 +18,20 @@ controller (an estimate, not realized routing).  An arch without MoE
 disabled, as the JAX launcher's is, and the MoE counts stay 0; the hybrid
 (``jamba-1.5-large-398b``) plans one row per MoE layer.  An arch with a
 modality frontend gets ``frontend_tokens`` precomputed embeddings a
-prompt, N(0, 1) from the round's generator, prepended to its tokens.  Counterpart of
-``repro/launch/serve.py``.
+prompt, N(0, 1) from the round's generator, prepended to its tokens.
+
+Across ranks (``torchrun --nproc-per-node 4 -m repro_torch.launch.serve
+...``, or a world ``parallel.sharding.spawn_world`` starts) the launcher
+builds the (data, model) world from ``WORLD_SIZE``, each rank holding
+its model group slice of the experts (``Model(expert_shard=)``), and
+serves under it: the controller plans over the model group's ``n``
+ranks, its table rows go into the table fabrics, ``ppermute`` gets one
+uniform static plan baked for the run (as JAX's launcher bakes it), and
+each data group serves its slice of the batch.  Every rank runs the same
+deterministic host controller on the same estimate; the tables are held
+equal across ranks once a round (a difference raises).  Prefill takes
+the fabric; decode (S = 1) takes the dense fabric's EP form.
+Counterpart of ``repro/launch/serve.py``.
 """
 
 from __future__ import annotations
@@ -27,16 +39,20 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core import decompose, plan_schedule
 from repro_torch.core.drift import DRIFT_KINDS, DriftScenario
 from repro_torch.core.runtime import Decision, make_serving_controller
+from repro_torch.core.schedule import TABLE_LEAVES
 from repro_torch.models import Model
-from repro_torch.parallel.fabric import TABLE_FABRICS
+from repro_torch.parallel.fabric import consumes_schedule, consumes_table
+from repro_torch.parallel.sharding import close_world, ep_world, init_world
 
 __all__ = ["ServeResult", "serve", "controller_line", "demand_estimate", "uniform_estimate", "main"]
 
@@ -58,6 +74,7 @@ class ServeResult:
     decisions: list[Decision]  # each round's controller decision (empty without a controller)
     tables: list  # each round's ScheduleTable, a host copy (empty without a controller)
     controller: list[dict]  # the runtime's metrics() after each round's observe (empty without a controller)
+    prompts: list  # each round's prompts [B, S] (host), the whole batch across data groups
 
     def decode_tok_s(self, batch: int, new_tokens: int) -> list[float]:
         return [batch * new_tokens / (ms / 1e3) for ms in self.decode_ms]
@@ -82,6 +99,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def static_plan(cfg, n_ranks: int, tokens: float):
+    """The uniform static plan a fabric that cannot swap plans runs
+    (``ppermute``): ``tokens`` choices spread evenly over the pairs,
+    decomposed by the config's strategy, 1.5x slack (JAX's launcher)."""
+    uniform = np.full((n_ranks, n_ranks), tokens / n_ranks**2)
+    return plan_schedule(decompose(uniform, cfg.moe.schedule_strategy), slack=1.5)
+
+
+def check_same_table(table, world) -> None:
+    """Raise unless every rank of the world holds this table's leaves."""
+    mine = torch.cat([getattr(table, name).reshape(-1).long().cpu() for name in TABLE_LEAVES])
+    if world.backend == "nccl":  # NCCL moves device tensors only
+        mine = mine.to(world.device)
+    every = [torch.empty_like(mine) for _ in range(world.size)]
+    torch.distributed.all_gather(every, mine)
+    bad = [r for r, t in enumerate(every) if not torch.equal(t, mine)]
+    if bad:
+        raise RuntimeError(f"rank {world.rank}: ranks {bad} hold another schedule table")
+
+
+def _gather_data(t: torch.Tensor, world) -> torch.Tensor:
+    """The data groups' row slices of ``t`` (dim 0) joined back, in order."""
+    if world is None or world.n_data == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(world.n_data)]
+    torch.distributed.all_gather(parts, t.contiguous(), group=world.data_group)
+    return torch.cat(parts)
+
+
 def serve(
     model: Model,
     *,
@@ -93,19 +139,40 @@ def serve(
     virtual_ranks: int = 8,
     drift: str = "none",
     seed: int = 0,
+    world=None,
 ) -> ServeResult:
     """Serve ``rounds`` batches of random prompts (made from ``seed``),
-    re-planning between rounds under the ``drift`` scenario."""
+    re-planning between rounds under the ``drift`` scenario.  With
+    ``world`` (``parallel.sharding.World``) every rank of it calls this:
+    the controller plans over the model group's ranks instead of
+    ``virtual_ranks``."""
+    with ep_world(world):
+        return _serve(model, batch=batch, prompt_len=prompt_len, new_tokens=new_tokens, rounds=rounds,
+                      controller=controller, n_ranks=virtual_ranks if world is None else world.n, drift=drift,
+                      seed=seed, world=world)
+
+
+def _serve(model, *, batch, prompt_len, new_tokens, rounds, controller, n_ranks, drift, seed, world) -> ServeResult:
     cfg, device = model.cfg, model.device
     runtime = scenario = None
     if controller:
-        runtime, scenario = make_serving_controller(
-            cfg, n_ranks=virtual_ranks, drift=drift, rounds=rounds, device=device
-        )
+        runtime, scenario = make_serving_controller(cfg, n_ranks=n_ranks, drift=drift, rounds=rounds, device=device)
         if runtime is None:
-            log.info("controller disabled: arch %s has no MoE whose experts tile %d ranks", cfg.name, virtual_ranks)
-    use_table = runtime is not None and cfg.moe.dispatch in TABLE_FABRICS
+            log.info("controller disabled: arch %s has no MoE whose experts tile %d ranks", cfg.name, n_ranks)
+    use_table = runtime is not None and consumes_table(cfg.moe.dispatch)
+    static = None
+    if (world is not None and cfg.moe is not None and consumes_schedule(cfg.moe.dispatch)
+            and not consumes_table(cfg.moe.dispatch)):
+        # a fabric that cannot swap plans (ppermute) gets one uniform plan for the run
+        static = static_plan(cfg, world.n, float(batch * prompt_len * cfg.moe.top_k))
+        log.info("baked a static %s plan (%d ranks): %s cannot swap plans at runtime",
+                 cfg.moe.schedule_strategy, world.n, cfg.moe.dispatch)
+    n_data, data_index = (1, 0) if world is None else (world.n_data, world.data_index)
+    if batch % n_data:
+        raise ValueError(f"batch {batch} does not split over {n_data} data groups")
+    rows = slice(data_index * batch // n_data, (data_index + 1) * batch // n_data)
     prefill_ms, decode_ms, plan_ms, tokens, decisions, tables, metrics, moe_by_round = [], [], [], [], [], [], [], []
+    all_prompts = []
     first_logits = table = None
     for r in range(rounds):
         t0 = time.perf_counter()
@@ -115,17 +182,21 @@ def serve(
             if decision.changed:
                 log.info("round %d: controller swap (%s)", r, "library miss" if decision.replanned else "library hit")
             table = runtime.table()  # the same tensors as last round unless the envelope changed
+            if world is not None:
+                check_same_table(table, world)
             decisions.append(decision)
             tables.append(table.clone("cpu"))
             metrics.append(runtime.metrics())
         plan_ms.append((time.perf_counter() - t0) * 1e3)
-        schedule = table if use_table else None
+        schedule = table if use_table else static
         gen = torch.Generator(device=device).manual_seed(seed + r)
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=device)
         prefix = cfg.frontend_tokens if cfg.frontend != "none" else 0
         ext = None if not prefix else torch.randn(
-            (batch, prefix, cfg.d_model), generator=gen, device=device).to(model.dtype)
-        caches = model.init_cache(batch, prefix + prompt_len + new_tokens)
+            (batch, prefix, cfg.d_model), generator=gen, device=device).to(model.dtype)[rows]
+        all_prompts.append(prompts.cpu())
+        prompts = prompts[rows]
+        caches = model.init_cache(prompts.shape[0], prefix + prompt_len + new_tokens)
         _sync(device)
         t0 = time.perf_counter()
         logits, caches, stats = model.prefill(prompts, caches, ext, schedule=schedule, collect_stats=True)
@@ -133,7 +204,7 @@ def serve(
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
         step_stats = [stats]
         if r == 0:
-            first_logits = logits.cpu()
+            first_logits = _gather_data(logits, world).cpu()
         token = torch.argmax(logits, dim=-1)
         out = []
         t0 = time.perf_counter()
@@ -146,7 +217,7 @@ def serve(
             step_stats.append(stats)
         _sync(device)
         decode_ms.append((time.perf_counter() - t0) * 1e3)
-        tokens.append(torch.stack(out, dim=1).cpu())
+        tokens.append(_gather_data(torch.stack(out, dim=1), world).cpu())
         totals = torch.zeros(3, dtype=torch.float64, device=device)  # admitted, dropped, routed
         for st in step_stats:
             if st is None:  # no MoE layer
@@ -168,6 +239,7 @@ def serve(
         tokens=torch.stack(tokens), first_logits=first_logits,
         admitted=admitted, dropped=dropped, routed=routed, moe_by_round=moe_by_round,
         table=None if table is None else table.clone(), decisions=decisions, tables=tables, controller=metrics,
+        prompts=all_prompts,
     )
 
 
@@ -195,11 +267,18 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--device", default="cuda", help="'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = Model(cfg, device=args.device, seed=0)
-    return serve(
-        model, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens,
-        rounds=args.rounds, controller=args.controller, virtual_ranks=args.virtual_ranks, drift=args.drift,
-    )
+    kw = dict(batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens, rounds=args.rounds,
+              controller=args.controller, virtual_ranks=args.virtual_ranks, drift=args.drift)
+    if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        return serve(Model(cfg, device=args.device, seed=0), **kw)
+    world = init_world(args.device)
+    try:
+        if world.rank:
+            logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs the run
+        model = Model(cfg, device=world.device, seed=0, expert_shard=(world.me, world.n))
+        return serve(model, **kw, world=world)
+    finally:
+        close_world()
 
 
 if __name__ == "__main__":

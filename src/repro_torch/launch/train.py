@@ -53,7 +53,7 @@ from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.launch.dryrun import build_schedule, expected_traffic
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.parallel.fabric import TABLE_FABRICS
+from repro_torch.parallel.fabric import consumes_table
 from repro_torch.train import TrainLoopConfig, make_train_step, train_loop
 
 __all__ = ["TrainResult", "data_config", "plan_table", "plan_controller", "train", "main"]
@@ -76,7 +76,7 @@ class TrainResult:
 def plan_table(cfg, *, batch: int, seq: int, virtual_ranks: int, device) -> ScheduleTable | None:
     """The JAX launcher's lossless plan as a per-layer table, or None when
     the arch's dispatch consumes no table rows."""
-    if cfg.moe is None or cfg.moe.dispatch not in TABLE_FABRICS:
+    if cfg.moe is None or not consumes_table(cfg.moe.dispatch):
         return None
     t_rank = max(batch * seq // virtual_ranks, 1)
     sched = build_schedule(cfg, virtual_ranks, t_rank, strategy=cfg.moe.schedule_strategy, plan="lossless")

@@ -9,7 +9,9 @@ weights JAX casts at use, so a trainer passes ``torch.float32`` masters
 and ``requires_grad=True``.  ``seed`` draws the parameters from a
 ``torch.Generator`` on that device with the JAX init's distributions
 (the numbers differ from JAX's); ``seed=None`` leaves them for
-``transplant.load_reference``.  With ``tie_embeddings`` there is no
+``transplant.load_reference``.  ``expert_shard`` (rank, n) keeps EP rank
+``rank``'s contiguous slice of each MoE layer's experts (a seeded model
+draws every expert, so its slice equals the one-device model's).  With ``tie_embeddings`` there is no
 ``head``: the logits are ``x @ table.T`` in f32, and the table is kept in
 f32 whatever the storage dtype, as JAX's ``unembed_apply`` reads it.  A
 modality frontend's precomputed embeddings (``ext_embeds`` [B, P, d]) are
@@ -55,10 +57,18 @@ def check_supported(cfg: ModelConfig) -> None:
 class Model(nn.Module):
     def __init__(
         self, cfg: ModelConfig, *, device=None, dtype=torch.bfloat16, param_dtype=None,
-        seed: int | None = 0, requires_grad: bool = False,
+        seed: int | None = 0, requires_grad: bool = False, expert_shard: tuple[int, int] | None = None,
     ):
         super().__init__()
         check_supported(cfg)
+        experts = None
+        if expert_shard is not None and cfg.moe is not None:
+            rank, n = expert_shard
+            if cfg.moe.n_experts % n:
+                raise ValueError(f"{cfg.moe.n_experts} experts do not split over {n} EP ranks")
+            e_local = cfg.moe.n_experts // n
+            experts = (rank * e_local, (rank + 1) * e_local)
+        self.expert_shard = expert_shard
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -68,7 +78,7 @@ class Model(nn.Module):
         d = cfg.d_model
         table_dtype = torch.float32 if cfg.tie_embeddings else self.param_dtype
         self.embed = normal_param((cfg.vocab_size, d), 0.02, **{**kw, "dtype": table_dtype})
-        self.layers = nn.ModuleList(stack.block_init(cfg, l, **kw) for l in range(cfg.n_layers))
+        self.layers = nn.ModuleList(stack.block_init(cfg, l, **kw, experts=experts) for l in range(cfg.n_layers))
         self.ln_f = ones_param(d, device=self.device)
         self.head = None if cfg.tie_embeddings else normal_param((d, cfg.vocab_size), d**-0.5, **kw)
         self.requires_grad_(requires_grad)

@@ -20,7 +20,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.schedule import ScheduleTable
+from repro_torch.core.schedule import A2ASchedule, ScheduleTable
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, rwkv
 from repro_torch.models.layers import GeluMLP, SwiGLU, ones_param, rmsnorm
@@ -37,7 +37,7 @@ class Block(nn.Module):
     Mamba block (MoE, SwiGLU or GELU MLP); an rwkv6 block's channel mix
     lives in its mixer."""
 
-    def __init__(self, cfg: ModelConfig, j: int, *, gen, device, dtype):
+    def __init__(self, cfg: ModelConfig, j: int, *, gen, device, dtype, experts=None):
         super().__init__()
         self.kind = cfg.layer_kind(j)
         kw = dict(gen=gen, device=device, dtype=dtype)
@@ -49,15 +49,16 @@ class Block(nn.Module):
         self.mixer = attn.attn_init(cfg, **kw) if self.kind == "attn" else mamba.Mamba(cfg, **kw)
         self.ln2 = ones_param(cfg.d_model, device=device)
         if cfg.ffn_kind(j) == "moe":
-            self.ffn = moe_init(cfg, **kw)
+            self.ffn = moe_init(cfg, **kw, experts=experts)
         elif cfg.ffn_gelu:
             self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, **kw)
         else:
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
 
-def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype) -> Block:
-    return Block(cfg, j, gen=gen, device=device, dtype=dtype)
+def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype, experts=None) -> Block:
+    """``experts`` (lo, hi): the MoE FFN keeps those experts (an EP rank's slice)."""
+    return Block(cfg, j, gen=gen, device=device, dtype=dtype, experts=experts)
 
 
 def block_train(p: Block, cfg: ModelConfig, x, schedule, *, collect_stats=False):
@@ -181,9 +182,12 @@ def moe_rows(cfg: ModelConfig) -> list[int | None]:
 
 def schedule_rows(schedule, cfg: ModelConfig) -> list:
     """Per-layer schedules: ``table.row(i)`` for the MoE layer of row i
-    (``moe_rows``), None for a layer without MoE."""
+    (``moe_rows``), None for a layer without MoE; a static
+    ``A2ASchedule`` goes to every MoE layer, as JAX broadcasts it."""
     if schedule is None:
         return [None] * cfg.n_layers
+    if isinstance(schedule, A2ASchedule):
+        return [None if i is None else schedule for i in moe_rows(cfg)]
     if not isinstance(schedule, ScheduleTable) or schedule.is_row:
         raise TypeError("the stack takes a full ScheduleTable (one row per MoE layer) or None")
     if schedule.num_layers != cfg.n_moe_layers:

@@ -16,6 +16,11 @@ weights, decay base and bonus stay f32.  Every key is consumed and every
 port parameter set; a leftover on either side raises.
 ``to_reference`` rebuilds that pytree from a model's parameters, or
 from their gradients, so tests compare leaf by leaf.
+
+Across EP ranks, ``load_reference(..., rank=, n_model=)`` keeps rank
+``rank``'s contiguous slice of each MoE layer's experts (expert ``e`` on
+rank ``e // e_local``), and ``to_reference(..., world=)`` all-gathers the
+slices back over the world's model group.
 """
 
 from __future__ import annotations
@@ -90,12 +95,23 @@ def _flatten(tree, prefix=()) -> dict[tuple, np.ndarray]:
     return {prefix: np.asarray(tree)}
 
 
+_EXPERT_LEAVES = ("ffn.w_gate", "ffn.w_up", "ffn.w_down")
+
+
+def _is_expert_leaf(attr: str, names) -> bool:
+    """A block attribute that holds one MoE layer's experts."""
+    return attr in _EXPERT_LEAVES and "ffn.router" in names
+
+
 def load_reference(
     cfg: ModelConfig, tree: dict, *, device=None, dtype=torch.bfloat16, param_dtype=None,
-    requires_grad: bool = False,
+    requires_grad: bool = False, rank: int | None = None, n_model: int | None = None,
 ) -> Model:
-    """A ``Model`` holding the JAX parameters ``tree`` (numpy leaves)."""
-    model = Model(cfg, device=device, dtype=dtype, param_dtype=param_dtype, seed=None, requires_grad=requires_grad)
+    """A ``Model`` holding the JAX parameters ``tree`` (numpy leaves);
+    with ``rank``/``n_model``, only that EP rank's experts."""
+    shard = None if n_model is None else (rank, n_model)
+    model = Model(cfg, device=device, dtype=dtype, param_dtype=param_dtype, seed=None, requires_grad=requires_grad,
+                  expert_shard=shard)
     leaves = _flatten(tree)
     used, unset = set(), {n for n, _ in model.named_parameters()}
 
@@ -118,12 +134,17 @@ def load_reference(
     period, n_periods = cfg.period, cfg.n_periods
     for l, block in enumerate(model.layers):
         p, j = divmod(l, period)
-        for attr, path in _block_leaves({n for n, _ in block.named_parameters()}).items():
+        bnames = {n for n, _ in block.named_parameters()}
+        for attr, path in _block_leaves(bnames).items():
             full = ("stack", f"pos{j}") + path
             stacked = take(full)
             if stacked.shape[0] != n_periods:
                 raise ValueError(f"{'/'.join(full)}: {stacked.shape[0]} periods, config has {n_periods}")
-            put(f"layers.{l}.{attr}", stacked[p], "/".join(full) + f"[{p}]")
+            arr = stacked[p]
+            if shard is not None and _is_expert_leaf(attr, bnames):
+                e_local = arr.shape[0] // n_model
+                arr = arr[rank * e_local:(rank + 1) * e_local]
+            put(f"layers.{l}.{attr}", arr, "/".join(full) + f"[{p}]")
     if set(leaves) - used:
         raise ValueError(f"unconsumed reference leaves: {sorted('/'.join(k) for k in set(leaves) - used)}")
     if unset:
@@ -137,16 +158,27 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def to_reference(model_or_grads, cfg: ModelConfig | None = None) -> dict:
+def to_reference(model_or_grads, cfg: ModelConfig | None = None, *, world=None) -> dict:
     """The JAX pytree layout (numpy f32 leaves) of a ``Model``'s parameters
     or of a ``{name: tensor}`` dict keyed like ``model.named_parameters()``
     (e.g. their gradients; ``cfg`` gives the period, default 1).  Block
-    leaves are stacked over periods."""
+    leaves are stacked over periods.  With ``world`` (every rank of its
+    model group calls it) each rank's expert slices are all-gathered."""
     if isinstance(model_or_grads, Model):
         named, cfg = dict(model_or_grads.named_parameters()), model_or_grads.cfg
     else:
         named = dict(model_or_grads)
     period = 1 if cfg is None else cfg.period
+    if world is not None and world.n > 1:
+        from repro_torch.parallel.collectives import all_gather_stats
+
+        for name in sorted(named):
+            if not name.startswith("layers."):
+                continue
+            _, layer, attr = name.split(".", 2)
+            if attr in _EXPERT_LEAVES and f"layers.{layer}.ffn.router" in named:
+                t = named[name].detach()
+                named[name] = all_gather_stats(t, world.model_group).reshape(-1, *t.shape[1:])
 
     def arr(name):
         return named.pop(name).detach().float().cpu().numpy()

@@ -1,1 +1,2 @@
-"""Parallel execution: the MoE fabric seam (one device so far)."""
+"""Parallel execution: the expert-parallel world (``sharding``), its
+collectives and the MoE fabrics."""

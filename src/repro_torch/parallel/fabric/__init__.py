@@ -1,26 +1,61 @@
-"""MoE dispatch fabrics.  One device runs the virtual ``dense`` fabric for
-every ``MoECfg.dispatch`` name; the multi-rank backends (``a2a``,
-``ppermute``, ``phase_pipelined`` on a mesh, ``ragged_a2a``,
-``hierarchical``) come with a later slice.  ``consumes_schedule`` and
-``consumes_table`` answer as the JAX registry does for each name."""
+"""``repro_torch.parallel.fabric``: pluggable MoE dispatch backends.
+
+One MoE pipeline (``models/moe.py``) over a name registry of ``Fabric``
+backends; ``MoECfg.dispatch`` selects by name.  Importing this package
+registers them:
+
+=================  =========================================================
+``dense``          the one-device virtual fabric (a row's admission on
+                   virtual ranks); across ranks, no-A2A EP with an
+                   all-reduce combine
+``a2a``            one monolithic all-to-all each way (the paper's baseline)
+``ppermute``       a static ``A2ASchedule`` as circuit phases
+``phase_pipelined``  ``ScheduleTable`` rows against a phase envelope
+                   (swapped without a rebuild; dense per-phase emulation)
+``ragged_a2a``     the same geometry, each phase's transfer exactly the
+                   live envelope slots of its pair
+=================  =========================================================
+
+plus the ``scheduled`` alias (by schedule type) and ``faulty:<base>``
+wrappers (``wrap_faulty``).  On one device every name runs the virtual
+dense fabric, as the JAX package does; across ranks a world
+(``parallel.sharding``) must be current.  ``hierarchical`` is a name of
+the JAX registry whose fabric comes later (ROADMAP.md §1).
+Counterpart of ``repro/parallel/fabric/__init__.py``.
+"""
 
 from repro_torch.parallel.fabric.base import (
-    SCHEDULE_KINDS,
+    DEGRADATION_CHAIN,
+    FABRICS,
+    UNPORTED_FABRICS,
+    Fabric,
     FabricContext,
     PackedTokens,
+    as_fabric_schedule,
     consumes_schedule,
     consumes_table,
+    fabric_names,
+    get_fabric,
+    known_fabric,
+    next_fabric,
+    register_fabric,
+    resolve_fabric,
 )
 from repro_torch.parallel.fabric.codec import CODECS, WireCodec, codec_names, get_codec
-from repro_torch.parallel.fabric.dense import DenseFabric
 
-# dispatch names the JAX package registers; on one device all of them
-# resolve to the virtual dense fabric (repro/models/moe.py, moe_apply)
-FABRIC_NAMES = ("a2a", "dense", "faulty", "hierarchical", "phase_pipelined", "ppermute", "ragged_a2a")
-# dispatch names whose fabric consumes ScheduleTable rows (JAX: consumes_table)
-TABLE_FABRICS = (*(n for n, kind in SCHEDULE_KINDS.items() if kind == "row"), "scheduled")
+# importing the backend modules registers them
+from repro_torch.parallel.fabric import geometry  # noqa: F401
+from repro_torch.parallel.fabric.dense import DenseFabric
+from repro_torch.parallel.fabric.a2a import MonolithicA2AFabric
+from repro_torch.parallel.fabric.ppermute import PPermuteFabric
+from repro_torch.parallel.fabric.phase_pipelined import PhasePipelinedFabric
+from repro_torch.parallel.fabric.ragged_a2a import RaggedA2AFabric
+from repro_torch.parallel.fabric.faulty import FaultInjectionFabric, wrap_faulty
 
 __all__ = [
-    "CODECS", "DenseFabric", "FABRIC_NAMES", "SCHEDULE_KINDS", "TABLE_FABRICS", "FabricContext",
-    "PackedTokens", "WireCodec", "codec_names", "consumes_schedule", "consumes_table", "get_codec",
+    "CODECS", "DEGRADATION_CHAIN", "FABRICS", "UNPORTED_FABRICS", "DenseFabric", "Fabric", "FabricContext",
+    "FaultInjectionFabric", "MonolithicA2AFabric", "PPermuteFabric", "PackedTokens", "PhasePipelinedFabric",
+    "RaggedA2AFabric", "WireCodec", "as_fabric_schedule", "codec_names", "consumes_schedule", "consumes_table",
+    "fabric_names", "geometry", "get_codec", "get_fabric", "known_fabric", "next_fabric", "register_fabric",
+    "resolve_fabric", "wrap_faulty",
 ]

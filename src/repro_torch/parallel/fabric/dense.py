@@ -1,4 +1,5 @@
-"""``dense`` fabric, the one-device *virtual* fabric.
+"""``dense`` fabric: the one-device *virtual* fabric and, across ranks,
+no-A2A expert parallelism (all-reduce combine).
 
 Tokens stay put and are grouped by expert into ``[E, C, d]``.  Handed a
 ``ScheduleTable`` row, it maps tokens to ``row.n`` virtual sources by
@@ -6,40 +7,47 @@ contiguous blocks and experts to virtual ranks by contiguous placement,
 and clips gates through the shared admission mask, so the schedule
 decides which tokens reach the expert GEMM even on one card.  A slot
 whose token's virtual source differs from its bucket's virtual rank
-crosses the (virtual) wire: the wire codec quantizes it.  Tokens never
-leave the device, so the dispatch slot count is 0.  Counterpart of
-``repro/parallel/fabric/dense.py``; its hierarchical-row branch comes
-with the hierarchical tables.
+crosses the (virtual) wire: the wire codec quantizes it.
+
+Across ranks (a world of n > 1 EP ranks) every rank packs the model
+group's replicated tokens the same way (admission reads the same virtual
+sources as on one device), runs only its local experts' ``[e_local, C,
+d]`` block, scatters their outputs back and an all-reduce over the model
+group sums them.  No token crosses the fabric: the price is the ``[T, d]``
+f32 all-reduce.  This is what ``moe_apply`` runs for ``dispatch="dense"``
+and for shapes the EP split cannot cut (decode at S = 1), as JAX's
+``moe_apply`` falls back on a mesh.
+
+Counterpart of ``repro/parallel/fabric/dense.py``; its hierarchical-row
+branch comes with the hierarchical tables.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
 
-from repro_torch.core.cost_models import wire_bytes_per_token
-from repro_torch.core.schedule import A2ASchedule, ScheduleTable
+from repro_torch.core.schedule import A2ASchedule
+from repro_torch.parallel import collectives as col
 from repro_torch.parallel.fabric import geometry as g
-from repro_torch.parallel.fabric.base import FabricContext, PackedTokens
-from repro_torch.parallel.fabric.codec import get_codec
+from repro_torch.parallel.fabric.base import Fabric, FabricContext, PackedTokens, register_fabric
 
 __all__ = ["DenseFabric"]
 
 
-class DenseFabric:
+@register_fabric
+class DenseFabric(Fabric):
     name = "dense"
+    uses_mesh = False
+    schedule_kind = "optional_row"
 
-    def validate_schedule(self, schedule):
-        """A row is used, None or a static plan means schedule-less."""
+    def validate_schedule(self, schedule, *, n: int = 1):
+        """A row is used; None or a static plan means schedule-less (a
+        static plan has no meaning without phases: dense layers ignore it)."""
         if schedule is None or isinstance(schedule, A2ASchedule):
             return None
-        if not isinstance(schedule, ScheduleTable):
-            raise ValueError(f"dense: needs a ScheduleTable row (got {type(schedule).__name__})")
-        if not schedule.is_row:
-            raise ValueError("dense: rejected a full ScheduleTable — pass table.row(l)")
-        return schedule
+        return super().validate_schedule(schedule, n=n)
 
     def pack(self, ctx: FabricContext, x_loc, idx, gates) -> PackedTokens:
         m = ctx.moe
@@ -65,43 +73,34 @@ class DenseFabric:
             admitted = torch.ones(t * m.top_k, dtype=torch.bool, device=x_loc.device)
         return PackedTokens(buf, pos, gate, live, admitted, wire=wire)
 
+    def _local(self, ctx: FabricContext) -> slice:
+        """This rank's experts' buckets (all of them on one device)."""
+        if not ctx.ep:
+            return slice(None)
+        return slice(ctx.me * ctx.e_local, (ctx.me + 1) * ctx.e_local)
+
     def dispatch(self, ctx: FabricContext, packed: PackedTokens):
-        """One block: the whole ``[E, C, d]`` buffer with its explicit
-        slot validity (a real admitted token, not the gate sign)."""
-        return [(packed.buf, packed.live)], None
+        """One block: the local experts' ``[e_local, C, d]`` buckets (all
+        of ``[E, C, d]`` on one device) with their explicit slot validity
+        (a real admitted token, not the gate sign)."""
+        lo = self._local(ctx)
+        return [(packed.buf[lo], packed.live[lo])], None
 
     def combine(self, ctx: FabricContext, packed: PackedTokens, state, ys):
         return ys[0]
 
-    def wire_encode(self, ctx: FabricContext, packed: PackedTokens) -> PackedTokens:
-        """QDQ the wire-crossing slots to ``MoECfg.wire_dtype``'s codec
-        before dispatch; the bf16 identity and a maskless pack return
-        ``packed`` unchanged.  An unknown codec name raises listing them."""
-        codec = get_codec(ctx.moe.wire_dtype)
-        if codec.is_identity or packed.wire is None:
-            return packed
-        return dataclasses.replace(packed, buf=codec.apply(packed.buf, packed.wire))
-
-    def wire_decode(self, ctx: FabricContext, packed: PackedTokens, y_slots: torch.Tensor) -> torch.Tensor:
-        """QDQ the processed slots on the combine leg through the same
-        codec: ``y_slots`` is slot-aligned with ``packed.buf``, so the
-        pack-time mask marks the slots whose results cross back."""
-        codec = get_codec(ctx.moe.wire_dtype)
-        if codec.is_identity or packed.wire is None:
-            return y_slots
-        return codec.apply(y_slots, packed.wire)
+    def unpack(self, ctx: FabricContext, packed: PackedTokens, y_slots, t: int) -> torch.Tensor:
+        if not ctx.ep:
+            return super().unpack(ctx, packed, y_slots, t)
+        lo = self._local(ctx)
+        if packed.wire is not None:
+            y_slots = self.wire_decode(ctx, PackedTokens(
+                packed.buf[lo], packed.pos[lo], packed.gate[lo], packed.live[lo], packed.admitted,
+                wire=packed.wire[lo]), y_slots)
+        y = g.ungroup(y_slots, packed.pos[lo], packed.gate[lo], t)  # this rank's experts' share
+        return col.all_reduce_sum(y, ctx.group)
 
     def dispatch_tokens(self, *, n: int, cap_uniform: int = 0, schedule=None, envelope=None) -> float:
         """Zero: no token crosses an EP fabric (the multi-rank dense path
         pays a ``[T, d]`` activation all-reduce instead, not a dispatch byte)."""
         return 0.0
-
-    def dispatch_bytes(
-        self, *, d_model: int, wire_dtype: str = "bf16", compute_bytes: int = 2, n: int, cap_uniform: int = 0,
-        schedule=None, envelope=None,
-    ) -> float:
-        """Per-rank dispatch bytes under ``wire_dtype``'s codec: the slots
-        priced at ``wire_bytes_per_token`` (payload at the codec's width
-        plus the per-slot scale the quantized codecs ship)."""
-        tokens = self.dispatch_tokens(n=n, cap_uniform=cap_uniform, schedule=schedule, envelope=envelope)
-        return tokens * wire_bytes_per_token(d_model, wire_dtype, compute_bytes)

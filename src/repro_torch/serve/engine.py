@@ -50,7 +50,8 @@ import torch
 from repro_torch.core import DeviceController, ScheduleTable, make_serving_controller
 from repro_torch.core.lap import greedy_phases
 from repro_torch.models import Model
-from repro_torch.parallel.fabric import TABLE_FABRICS
+from repro_torch.parallel.fabric import consumes_table
+from repro_torch.parallel.sharding import current_world
 from repro_torch.serve.batcher import ContinuousBatcher
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.queue import Request, RequestQueue
@@ -92,6 +93,12 @@ class ServeEngine:
         seed: int = 0,
         device=None,
     ):
+        world = current_world()
+        if world is not None and world.size > 1:
+            raise NotImplementedError(
+                "the serving engine runs on one rank: its decode step is one CUDA graph, and collectives cannot be "
+                "captured in it; serve across ranks through repro_torch.launch.serve"
+            )
         if controller not in ("auto", "off"):
             raise ValueError(f"controller must be 'auto' or 'off', got {controller!r}")
         if max(buckets) > max_len:
@@ -118,7 +125,7 @@ class ServeEngine:
         self._bank_refs: list[np.ndarray] = []
         # ------------------------------------------------------ controller
         self._runtime = self._ctrl = self._state = self._table = self._prefill_table = None
-        if controller == "auto" and cfg.moe is not None and cfg.moe.dispatch in TABLE_FABRICS:
+        if controller == "auto" and cfg.moe is not None and consumes_table(cfg.moe.dispatch):
             self._build_controller(
                 n_ranks=n_ranks, regime_slots=regime_slots, regime_threshold=regime_threshold,
                 replan_penalty=replan_penalty, drop_tolerance=drop_tolerance, hysteresis_steps=hysteresis_steps,

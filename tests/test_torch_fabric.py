@@ -122,3 +122,155 @@ def test_consumes_schedule_rejects_unknown_names_as_jax_does():
     for fn in (consumes_schedule, consumes_table, jax_fabric.consumes_schedule, jax_fabric.consumes_table):
         with pytest.raises(ValueError, match="unknown dispatch mode"):
             fn("carrier_pigeon")
+
+
+# ------------------------------------------------------------ the registry
+import repro.parallel.fabric as jfab  # noqa: E402
+from repro.core import FaultScenario as JaxScenario  # noqa: E402
+from repro.core.faults import FabricFaultError as JaxFaultError  # noqa: E402
+from repro.core.schedule import A2ASchedule as JaxPlan  # noqa: E402
+
+import repro_torch.parallel.fabric as pfab  # noqa: E402
+from repro_torch.core import FabricFaultError, FaultScenario  # noqa: E402
+from repro_torch.core.schedule import plan_schedule_bvn  # noqa: E402
+
+N_REG = 4
+
+
+def _reg_plans():
+    """(port plan, JAX plan, port row, JAX row, port table, JAX table) of one traffic matrix."""
+    m = np.random.default_rng(7).integers(20, 200, size=(N_REG, N_REG)).astype(np.float64)
+    plan = plan_schedule(decompose(m, "maxweight"), slack=1.5)
+    jplan = JaxPlan(perms=plan.perms, caps=plan.caps, valid=plan.valid, offsets=plan.offsets)
+    table = ScheduleTable.from_schedules([plan], envelope="auto")
+    jtable = JaxTable.from_schedules([jplan], envelope="auto")
+    return plan, jplan, table.row(0), jtable.row(0), table, jtable
+
+
+def test_fabric_names_are_the_jax_registry_but_the_unported_hierarchical():
+    assert set(pfab.fabric_names()) == set(jfab.fabric_names()) - set(pfab.UNPORTED_FABRICS)
+    assert pfab.fabric_names() == tuple(sorted(pfab.fabric_names()))
+    with pytest.raises(NotImplementedError, match="hierarchical"):
+        pfab.get_fabric("hierarchical")
+    for fn in (pfab.get_fabric, jfab.get_fabric):
+        with pytest.raises(ValueError, match="unknown dispatch mode 'warp'.*scheduled"):
+            fn("warp")
+
+
+def test_resolve_scheduled_alias_as_jax():
+    plan, jplan, row, jrow, *_ = _reg_plans()
+    assert pfab.resolve_fabric("scheduled", plan).name == jfab.resolve_fabric("scheduled", jplan).name == "ppermute"
+    assert pfab.resolve_fabric("scheduled", row).name == jfab.resolve_fabric("scheduled", jrow).name == "phase_pipelined"
+    for name in ("a2a", "dense", "ragged_a2a"):
+        assert pfab.resolve_fabric(name).name == jfab.resolve_fabric(name).name == name
+    for mod in (pfab, jfab):
+        with pytest.raises(ValueError, match="scheduled dispatch needs"):
+            mod.resolve_fabric("scheduled", None)
+
+
+def _validate_cases(plan, row, table, row_no_env, row_n2):
+    """(fabric, schedule, n) misuses: every validate_schedule error path."""
+    return [
+        ("ppermute", row, N_REG), ("ppermute", None, N_REG),
+        ("phase_pipelined", plan, N_REG), ("phase_pipelined", None, N_REG), ("phase_pipelined", table, N_REG),
+        ("phase_pipelined", row_n2, N_REG), ("ragged_a2a", row_no_env, N_REG), ("ragged_a2a", plan, N_REG),
+        ("dense", table, 1), ("ppermute", "a plan", N_REG),
+    ]
+
+
+def test_validate_schedule_errors_name_the_backend_and_the_chain_as_jax():
+    plan, jplan, row, jrow, table, jtable = _reg_plans()
+    m2 = np.array([[0.0, 30.0], [40.0, 0.0]])
+    p2, j2 = plan_schedule(decompose(m2, "maxweight")), jax_plan(jax_decompose(m2, "maxweight"))
+    port = _validate_cases(plan, row, table, ScheduleTable.from_schedules([plan]).row(0),
+                           ScheduleTable.from_schedules([p2], envelope="auto").row(0))
+    ref = _validate_cases(jplan, jrow, jtable, JaxTable.from_schedules([jplan]).row(0),
+                          JaxTable.from_schedules([j2], envelope="auto").row(0))
+    for (name, sched, n), (_, jsched, _) in zip(port, ref):
+        with pytest.raises(ValueError) as got:
+            pfab.get_fabric(name).validate_schedule(sched, n=n)
+        with pytest.raises(ValueError) as want:
+            jfab.get_fabric(name).validate_schedule(jsched, n=n)
+        assert str(got.value) == str(want.value), name
+        assert str(got.value).startswith(f"{name}: ") and "degradation chain" in str(got.value)
+    # what each backend accepts
+    assert pfab.get_fabric("a2a").validate_schedule(row, n=N_REG) is None
+    assert pfab.get_fabric("dense").validate_schedule(plan, n=N_REG) is None
+    assert pfab.get_fabric("dense").validate_schedule(row, n=1) is row
+    assert pfab.get_fabric("ppermute").validate_schedule(plan, n=N_REG) is plan
+
+
+@pytest.mark.parametrize("name", ["dense", "a2a", "phase_pipelined", "ragged_a2a", "ppermute", "faulty:ragged_a2a",
+                                  "warp_drive", "hierarchical"])
+def test_next_fabric_and_chain_as_jax(name):
+    assert pfab.next_fabric(name) == jfab.next_fabric(name)
+    assert pfab.DEGRADATION_CHAIN == jfab.DEGRADATION_CHAIN
+
+
+def test_as_fabric_schedule_as_jax():
+    plan, jplan, *_ = _reg_plans()
+    for name in ("phase_pipelined", "ragged_a2a", "ppermute", "dense", "scheduled", "a2a"):
+        got, want = pfab.as_fabric_schedule(name, plan, 2), jfab.as_fabric_schedule(name, jplan, 2)
+        assert type(got).__name__ == type(want).__name__, name
+        if isinstance(got, ScheduleTable):
+            assert got.num_layers == want.num_layers == 2 and got.envelope == tuple(want.envelope)
+            np.testing.assert_array_equal(got.perms.numpy(), np.asarray(want.perms))
+
+
+def test_wrap_faulty_refuses_a_routed_dark_pair_as_jax():
+    plan, jplan, row, jrow, *_ = _reg_plans()
+    i, j = next((i, int(plan.perms[k, i])) for k in range(plan.num_phases) for i in range(N_REG) if plan.valid[k, i])
+    seed = next(s for s in range(500)
+                if FaultScenario("dead_link", n_ranks=N_REG, onset=0, n_links=1, seed=s).dead_pairs == ((i, j),))
+    sc, jsc = (cls("dead_link", n_ranks=N_REG, onset=0, n_links=1, seed=seed) for cls in (FaultScenario, JaxScenario))
+    assert jsc.dead_pairs == ((i, j),)
+    names = []
+    try:
+        for base in ("ppermute", "phase_pipelined"):
+            name, jname = pfab.wrap_faulty(base, sc), jfab.wrap_faulty(base, jsc)
+            names.append(name)
+            assert name == jname == f"faulty:{base}"
+            fab, jf = pfab.get_fabric(name), jfab.get_fabric(jname)
+            assert (fab.uses_mesh, fab.schedule_kind, fab.requires_envelope) == (
+                jf.uses_mesh, jf.schedule_kind, jf.requires_envelope)
+            sched, jsched = (plan, jplan) if base == "ppermute" else (row, jrow)
+            for f in (fab, jf):
+                f.advance(5)
+            with pytest.raises(FabricFaultError) as got:
+                fab.validate_schedule(sched, n=N_REG)
+            with pytest.raises(JaxFaultError) as want:
+                jf.check_transfers(jsched if base == "ppermute" else jplan)
+            assert str(got.value) == str(want.value)
+            assert (got.value.backend, got.value.pair, got.value.next_fabric) == (base, (i, j), pfab.next_fabric(base))
+            assert fab.faults_raised == 1
+            fab.advance(-1)  # before the onset the same plan passes
+            fab.check_transfers(sched)
+            fab.advance(5)  # a plan made under the mask passes during the outage
+            masked = plan_schedule(decompose(np.full((N_REG, N_REG), 50.0), "maxweight", link_mask=sc.link_mask(5)))
+            fab.check_transfers(masked)
+    finally:
+        for name in names:
+            pfab.FABRICS.pop(name, None)
+            jfab.FABRICS.pop(name, None)
+    assert "faulty:ppermute" not in pfab.fabric_names()
+
+
+def test_dispatch_accounting_as_jax():
+    plan, jplan, row, jrow, table, jtable = _reg_plans()
+    bvn = plan_schedule_bvn(decompose(np.random.default_rng(8).integers(20, 200, (N_REG, N_REG)).astype(float), "bvn"))
+    env = np.asarray(table.envelope)
+    for name in ("dense", "a2a", "ppermute", "phase_pipelined", "ragged_a2a"):
+        for sched in (plan, bvn):
+            jsched = JaxPlan(perms=sched.perms, caps=sched.caps, valid=sched.valid, offsets=sched.offsets)
+            kw = dict(n=N_REG, cap_uniform=96, envelope=env)
+            got = pfab.get_fabric(name).dispatch_tokens(**kw, schedule=sched)
+            assert got == jfab.get_fabric(name).dispatch_tokens(**kw, schedule=jsched), name
+            for wire in ("bf16", "fp8", "int8"):
+                kwb = dict(kw, d_model=4096, wire_dtype=wire)
+                assert pfab.get_fabric(name).dispatch_bytes(**kwb, schedule=sched) == \
+                    jfab.get_fabric(name).dispatch_bytes(**kwb, schedule=jsched), (name, wire)
+    pp, jpp = pfab.get_fabric("phase_pipelined"), jfab.get_fabric("phase_pipelined")
+    assert pp.dispatch_tokens_padded(n=N_REG, envelope=env) == jpp.dispatch_tokens_padded(n=N_REG, envelope=env)
+    for name, kw in (("ppermute", {}), ("phase_pipelined", {"schedule": plan}), ("ragged_a2a", {"envelope": env})):
+        with pytest.raises(ValueError, match=name):
+            pfab.get_fabric(name).dispatch_tokens(n=N_REG, **kw)

@@ -57,7 +57,10 @@ def test_every_module_is_found():
         "repro_torch.configs.dbrx_132b", "repro_torch.kernels.mamba_scan.ops", "repro_torch.models.mamba",
         "repro_torch.configs.granite_34b", "repro_torch.configs.granite_3_8b", "repro_torch.configs.h2o_danube_3_4b",
         "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.internvl2_26b", "repro_torch.configs.musicgen_large",
-        "repro_torch.configs.jamba_1_5_large",
+        "repro_torch.configs.jamba_1_5_large", "repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
+        "repro_torch.parallel.fabric.base", "repro_torch.parallel.fabric.geometry", "repro_torch.parallel.fabric.a2a",
+        "repro_torch.parallel.fabric.ppermute", "repro_torch.parallel.fabric.phase_pipelined",
+        "repro_torch.parallel.fabric.ragged_a2a", "repro_torch.parallel.fabric.faulty",
     ):
         assert expected in names
 
@@ -116,3 +119,22 @@ def test_simulate_entry_point_raises_without_card_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         simulate.main(["--routers", "mixtral-8x7b", "--smoke"])
     assert simulate.profile_knee(tiny, (1, 4, 16, 64), device="cpu", reps=1).device == "cpu"
+
+
+def test_world_entry_points_raise_without_card_unless_cpu(monkeypatch):
+    """A world on the card (the default) needs one; nothing joins a process
+    group first, so nothing waits for the other ranks."""
+    from repro_torch.parallel.sharding import init_world, world_backend
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_world(rank=0, size=4)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_mod.main(["--smoke", "--batch", "4", "--prompt-len", "8", "--new-tokens", "1", "--rounds", "1"])
+    assert torch.distributed.is_available() and not torch.distributed.is_initialized()
+    # the layout picks the backend: ranks sharing a card or the host run gloo, a card a rank NCCL
+    assert world_backend(torch.device("cpu"), 4, 0) == "gloo"
+    assert world_backend(torch.device("cuda", 0), 4, 1) == "gloo"
+    assert world_backend(torch.device("cuda", 0), 4, 4) == "nccl"

@@ -55,7 +55,9 @@ class _Losses(logging.Handler):
 @pytest.mark.cuda
 def test_train_loop_survives_a_fault_and_resumes_on_card(cuda_device, tmp_path):
     cfg = smoke_config("mixtral-8x7b")
-    cfg = dataclasses.replace(cfg, n_layers=1, moe=dataclasses.replace(cfg.moe, dispatch="phase_pipelined"))
+    # remat per block, so each step's backward recomputes the forward: K1 twice a step, as phase 8b runs it
+    cfg = dataclasses.replace(cfg, n_layers=1, remat="block",
+                              moe=dataclasses.replace(cfg.moe, dispatch="phase_pipelined"))
     model = Model(cfg, device=cuda_device, param_dtype=torch.float32, requires_grad=True, seed=0)
     # a 10-step cooldown keeps steps 5-6 and their replay under one table (chip_smoke.py, LOOP_COOLDOWN)
     _, ctrl, state = plan_controller(cfg, batch=1, seq=SEQ, virtual_ranks=8, device=cuda_device, cooldown=10)
@@ -125,7 +127,9 @@ def test_ef8_on_card_equals_cpu(cuda_device):
         g = {n: (rng.standard_normal(s) * 10.0 ** rng.uniform(-4, 1, s)).astype(np.float32) for n, s in shapes.items()}
         out = {}
         for dev, ef in on.items():
-            grads = {n: torch.from_numpy(v).to(dev) for n, v in g.items()}
+            # a copy of its own for each device: ef_int8_compress writes the dequantized gradient in place,
+            # and torch.from_numpy(v).to("cpu") would share (and so overwrite) the next device's input
+            grads = {n: torch.tensor(v, device=dev) for n, v in g.items()}
             ef_int8_compress(grads, ef, groups)
             out[dev] = grads
         for n in shapes:
