@@ -160,8 +160,10 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    bf16 in the model's strided views from S = 0, f32 from a carried s0
    with a nonzero dS_final, and decays near 0 and near 1; each gradient
    within 1e-3 relative L2 and 1e-3 x max |plain| (printed), with K5b's
-   time beside its bound (14 D^2 f32 FLOP per step and head), the plain
-   version's and K5's forward on the same inputs;
+   time (its two launches: the sweep of the state and its gradient over
+   the chunk edges, then each chunk's gradients) beside its bound (14 D^2
+   f32 FLOP per step and head), the plain version's and K5's forward on
+   the same inputs;
 10b. the ``long_500k`` cell (``launch/shapes.py``) on the same 32-layer
    model: ``cell_applicable`` for every ported config (True for the
    ``subquadratic`` ones), then ``long_cell``: the RWKV state of
@@ -244,8 +246,10 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    equal bit for bit), timed as a CUDA graph replay beside its bound (the
    function's least traffic, no checkpoints, or one exponential a state
    and step) and this design's own traffic (checkpoints, partial sums), the
-   plain version and K6's forward with and without checkpoints; one more
-   step of each traced by kernel group.  Phases 11 and 13 share
+   plain version; K6 on the same scan inputs held against its plain
+   version (``WKV_TOL``) and timed without and with checkpoints beside its
+   bound (the exponentials), its row under ``train`` in the kernels line;
+   one more step of each traced by kernel group.  Phases 11 and 13 share
    ``train_step_vs_plain`` and ``train_and_check``.
 14. expert parallelism across ranks (``parallel.sharding``,
    ``parallel.collectives``, the fabrics): 4 ranks spawned on the one
@@ -1792,7 +1796,7 @@ def main() -> None:
     reset_counts()
     res = serve(
         model, batch=BATCH, prompt_len=PROMPT, new_tokens=NEW_TOKENS, rounds=ROUNDS,
-        controller=True, virtual_ranks=VIRTUAL_RANKS, seed=0,
+        controller=True, virtual_ranks=VIRTUAL_RANKS, drift="none", seed=0,
     )
     launches = read_counts()
     expect = dict.fromkeys(COUNTED, 0)
@@ -2353,7 +2357,7 @@ def main() -> None:
               f"{prefix}, init {time.perf_counter() - t0:.1f} s")
         reset_counts()
         res = serve(amodel, batch=bsz, prompt_len=plen, new_tokens=new, rounds=rounds, controller=True,
-                    virtual_ranks=VIRTUAL_RANKS, seed=0)
+                    virtual_ranks=VIRTUAL_RANKS, drift="none", seed=0)
         got = read_counts()
         expect = dict.fromkeys(COUNTED, 0)
         expect.update(flash_attention_fwd=rounds * n_attn, selective_scan=rounds * n_mamba * (1 + new),
@@ -3156,7 +3160,8 @@ def main() -> None:
     rtres, rtpeak_gb, rwkv_train_launches = train_and_check(
         "rwkv", model, RWKV_TRAIN_STEPS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ,
         {"wkv6": 2 * RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS, "wkv6_bwd": RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS},
-        {"K5 wkv6": {"wkv6_kernel"}, "K5b wkv6_bwd": {"wkv6_bwd_kernel"}})
+        {"K5 wkv6": {"wkv6_kernel"},
+         "K5b wkv6_bwd": {"wkv6_bwd_sweep_kernel", "wkv6_bwd_grad_kernel"}})
     rwkv_train_row = {"step_ms": rtres.step_ms, "losses": rtres.losses, "peak_gb": rtpeak_gb}
     del model
     torch.cuda.empty_cache()
@@ -3384,7 +3389,7 @@ def main() -> None:
     # (K6, K6b) against the plain path, with the first scan backward's inputs recorded; K6b held against its
     # plain version on them and timed as a CUDA graph replay; then each model through launch/train.py's train
     t_phase = time.perf_counter()
-    train13, train13_launches, k6b_row = {}, dict.fromkeys(COUNTED, 0), None
+    train13, train13_launches, k6b_row, k6_train_row = {}, dict.fromkeys(COUNTED, 0), None, None
 
     def plain_scan_forward(*args, checkpoints=False, **kw):
         out = k6.selective_scan_plain(*args, **kw)
@@ -3464,6 +3469,26 @@ def main() -> None:
             # this design's own traffic: the function's, its checkpoints read, its dB/dC partials written and read
             n_blocks = -(-di_ // k6._bwd_lib().mamba_scan_bwd_block_channels())
             design_bytes = nbytes + 4 * hck6.numel() + 2 * 4 * n_blocks * bsz_ * s_ * 2 * k6.MAX_STATE
+            # K6 at the training shape on the same scan inputs, with checkpoints (as autograd launches it) and
+            # without: y and h held against the plain version within WKV_TOL (comparison launches, not counted)
+            y_k, h_k, _ = k6._launch(x6, dt6, b6, c6, a6, d6, h06, checkpoints=True)
+            y_p, h_p = k6.selective_scan_plain(x6, dt6, b6, c6, a6, d6, h06)
+            k6_train_row = {
+                "shape": f"x[{bsz_},{s_},{di_}] {str(x6.dtype).removeprefix('torch.')} ds {ds_}, dt f32, from zeros "
+                         f"(Jamba layer 0 in training)",
+                "max_abs_err": max(close_f32(y_k, y_p, "K6 y at the training shape"),
+                                   close_f32(h_k, h_p, "K6 h at the training shape")),
+                "ms": graph_ms(lambda: k6._launch(x6, dt6, b6, c6, a6, d6, h06), 5),
+                "checkpointed_ms": graph_ms(lambda: k6._launch(x6, dt6, b6, c6, a6, d6, h06, checkpoints=True), 5),
+                "plain_ms": cuda_ms(lambda: k6.selective_scan_plain(x6, dt6, b6, c6, a6, d6, h06), 1, warmup=1),
+                "library_ms": None, **k6_cost(x6, dt6, b6, c6, a6, d6, h06),
+            }
+            del y_k, h_k, y_p, h_p
+            print(f"K6 at the training shape: {k6_train_row['shape']} | kernel {k6_train_row['ms']:.4f} ms, with "
+                  f"checkpoints every {ck} steps {k6_train_row['checkpointed_ms']:.4f} ms (CUDA graph replays) | plain "
+                  f"{k6_train_row['plain_ms']:.1f} ms | library: none | bound {k6_train_row['bound_ms']:.4f} ms "
+                  f"({k6_train_row['bound_set_by']}), {100 * k6_train_row['bound_ms'] / k6_train_row['ms']:.1f}% of "
+                  f"bound | max_abs_err {k6_train_row['max_abs_err']:.3g} (tol {WKV_TOL} + {WKV_TOL}*|plain|) ({card})")
             k6b_row = {
                 "shape": f"x[{bsz_},{s_},{di_}] {str(x6.dtype).removeprefix('torch.')} ds {ds_}, dt/dy f32, "
                          f"checkpoints every {ck} steps, from zeros (Jamba layer 0 in training)",
@@ -3474,8 +3499,7 @@ def main() -> None:
                 "bound_by": "bytes" if t_bytes >= t_exp else "operations",
                 "bound_parts_ms": {"bytes": t_bytes * 1e3, "exponentials": t_exp * 1e3, "f32 FLOPs": t_flops * 1e3},
                 "bound_bytes": nbytes, "design_bytes": design_bytes, "design_bytes_ms": design_bytes / HBM_BYTES_PER_S * 1e3,
-                "forward_checkpointed_ms": graph_ms(lambda: k6._launch(x6, dt6, b6, c6, a6, d6, checkpoints=True), 5),
-                "forward_ms": graph_ms(lambda: k6._launch(x6, dt6, b6, c6, a6, d6), 5),
+                "forward_checkpointed_ms": k6_train_row["checkpointed_ms"], "forward_ms": k6_train_row["ms"],
             }
             print(f"K6b backward: {k6b_row['shape']} | kernel {k6b_row['ms']:.4f} ms (CUDA graph replay) | plain "
                   f"{k6b_row['plain_ms']:.1f} ms | library: none (no PyTorch call computes it) | bound "
@@ -3577,7 +3601,7 @@ def main() -> None:
             name="selective_scan", route="cuda", source="src/repro_torch/csrc/mamba_scan.cu",
             # port-side: the JAX model runs the recurrence as a lax.scan (_scan_ssm; no Pallas kernel)
             replaces="src/repro/models/mamba.py:66", launches=sum(path_launches["selective_scan"].values()),
-            launches_by_path=path_launches["selective_scan"], **s12_k6["jamba-1.5-large-398b"],
+            launches_by_path=path_launches["selective_scan"], **s12_k6["jamba-1.5-large-398b"], train=k6_train_row,
         ),
         dict(
             name="mamba_scan_bwd", route="cuda", source="src/repro_torch/csrc/mamba_scan_bwd.cu",

@@ -69,10 +69,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _rows_aligned(strides, *xs) -> bool:
-    """Every (b, h, t) row starts on 16 bytes, as the kernel's cp.async
-    copies need: 16-byte-aligned bases and strides a multiple of 8."""
-    return all(s % 8 == 0 for s in strides[:3]) and all(x.data_ptr() % 16 == 0 for x in xs)
+def _rows_aligned(strides, *xs, per16=8) -> bool:
+    """Every (b, h, t) row starts on 16 bytes, as the kernels' 16-byte
+    copies need: 16-byte-aligned bases and strides a multiple of ``per16``
+    elements (8: a bf16 or f32 view of r/k/v and w; 4: an f32 dy)."""
+    return all(s % per16 == 0 for s in strides[:3]) and all(x.data_ptr() % 16 == 0 for x in xs)
 
 
 def _aligned(x):
@@ -164,16 +165,18 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("rwkv_wkv_bwd")
     if lib.wkv6_bwd.argtypes is None:
         lib.wkv6_bwd.argtypes = (
-            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.wkv6_bwd.restype = ctypes.c_int
-        lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
         lib.wkv6_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
 def _launch_bwd(r, k, v, w, u, dy, s0, ds_final):
-    """One K5b launch: (dr, dk, dv, dw, du, ds0) as ``wkv6_bwd_plain``."""
+    """One K5b call (two kernel launches: the sweep of the state and of its
+    gradient over the 32-step chunks' edges, then each chunk's gradients):
+    (dr, dk, dv, dw, du, ds0) as ``wkv6_bwd_plain``."""
     b, h, t, d = r.shape
     dev = r.device
     (r, k, v, w), strides, u, (s0, ds_final) = _prepare(
@@ -182,20 +185,19 @@ def _launch_bwd(r, k, v, w, u, dy, s0, ds_final):
     if dy.dtype != torch.float32 or dy.device != dev or tuple(dy.shape) != (b, h, t, d):
         raise ValueError(f"wkv6 backward kernel: dy must be f32 {(b, h, t, d)} on {dev}, "
                          f"got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
-    if dy.stride(3) != 1:
-        dy = dy.contiguous()
+    if dy.stride(3) != 1 or not _rows_aligned(dy.stride(), dy, per16=4):
+        dy = dy.clone(memory_format=torch.contiguous_format)  # fresh, aligned
     lib = _bwd_lib()
     grads = [torch.empty((b, t, h, d), dtype=torch.float32, device=dev) for _ in range(4)]  # dr, dk, dv, dw
     du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     ds0 = None if s0 is None else torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
-    snap, sub = (torch.empty(lib.wkv6_bwd_scratch_floats(b, h, t, i), dtype=torch.float32, device=dev)
-                 for i in (0, 1))
+    # scratch: the state before every 32-step chunk and G at its last step
+    states = torch.empty(lib.wkv6_bwd_scratch_floats(b, h, t), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = lib.wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), ptr(s0), dy.data_ptr(),
-        ptr(ds_final), *(g.data_ptr() for g in grads), du_part.data_ptr(), ptr(ds0), snap.data_ptr(),
-        sub.data_ptr(), b, h, t, d, *strides[:3], *dy.stride()[:3], int(r.dtype == torch.bfloat16),
-        build.stream_handle(dev),
+        ptr(ds_final), *(g.data_ptr() for g in grads), du_part.data_ptr(), ptr(ds0), states.data_ptr(),
+        b, h, t, d, *strides[:3], *dy.stride()[:3], int(r.dtype == torch.bfloat16), build.stream_handle(dev),
     )
     build.check(err, "wkv6_bwd")
     return (*(g.transpose(1, 2) for g in grads), du_part.sum(0), ds0)

@@ -5,7 +5,8 @@
 
 With ``--controller`` a ``ScheduleRuntime`` (``make_serving_controller``)
 observes each round's demand estimate, re-plans between rounds when the
-estimate drifts (``--drift shift|hotspot|skew``) and swaps its table into
+estimate drifts (``--drift shift|hotspot|skew``; ``shift`` by default, as
+JAX's launcher, ``none`` for a fixed demand) and swaps its table into
 the MoE layers when the arch's dispatch consumes table rows (e.g.
 ``phase_pipelined``); each round then runs ``prefill`` over ``[B, S]``
 prompts and ``new_tokens`` greedy ``decode_step``s under that table.  A
@@ -262,7 +263,8 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--new-tokens", type=int, default=64)
     ap.add_argument("--rounds", type=int, default=2, help="request batches")
     ap.add_argument("--controller", action="store_true", help="re-plan MoE schedules between rounds")
-    ap.add_argument("--drift", default="none", choices=DRIFT_KINDS, help="demand drift across rounds")
+    ap.add_argument("--drift", default="shift", choices=DRIFT_KINDS,
+                    help="demand drift across rounds (with --controller)")
     ap.add_argument("--virtual-ranks", type=int, default=8)
     ap.add_argument("--device", default="cuda", help="'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)

@@ -28,7 +28,8 @@ steps)``.  Each
 step of ``train`` logs loss, grad norm, step ms and tokens/s; ``main``
 goes through ``train_loop`` (checkpoints under ``--ckpt``, every
 ``max(steps // 4, 10)`` steps and at the last, optional ``--grad-compress
-ef8``), as the JAX launcher does, and logs every 10th step; a second run
+ef8``, ``--wire-dtype fp8|int8`` for a MoE config), as the JAX launcher
+does, and logs every 10th step; a second run
 on the same ``--ckpt`` resumes from its latest checkpoint.
 ``plan_controller`` builds the device controller of the fused step.
 Counterpart of ``repro/launch/train.py``.
@@ -53,7 +54,7 @@ from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.launch.dryrun import build_schedule, expected_traffic
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.parallel.fabric import consumes_table
+from repro_torch.parallel.fabric import codec_names, consumes_table
 from repro_torch.train import TrainLoopConfig, make_train_step, train_loop
 
 __all__ = ["TrainResult", "data_config", "plan_table", "plan_controller", "train", "main"]
@@ -145,6 +146,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     ap.add_argument("--dispatch", default=None, help="MoE dispatch name (one device: the virtual fabric)")
+    ap.add_argument("--wire-dtype", default=None, choices=[None, *codec_names()],
+                    help="wire codec for dispatch payloads (fp8/int8 quantize the slots that cross ranks)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compress", default=None, choices=[None, "ef8"])
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt"))
@@ -156,6 +159,8 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.moe is not None and args.dispatch:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
+    if cfg.moe is not None and args.wire_dtype:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, wire_dtype=args.wire_dtype))
     model = Model(cfg, device=args.device, param_dtype=torch.float32, requires_grad=True, seed=0)
     log.info("arch %s, %d layers, %.3f B params", cfg.name, cfg.n_layers,
              sum(p.numel() for p in model.parameters()) / 1e9)

@@ -508,6 +508,52 @@ def test_k5b_kernel_with_extreme_decays(cuda_device, decay, carried):
     _close_bwd(wkv6_bwd(*args), wkv6_bwd_plain(*args))
 
 
+K5B_CHUNK = 32  # steps a chunk of K5b's parallel walk (csrc/rwkv_wkv_bwd.cu, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, K5B_CHUNK - 1, K5B_CHUNK + 1, 1000])
+@pytest.mark.parametrize("carried", [False, True])
+def test_k5b_kernel_at_its_chunk_edges(cuda_device, t, carried):
+    """T at one step, a chunk less one, a chunk and one, and 1000 (31 whole chunks and a ragged one of 8),
+    in the model's [B, T, H, D] views."""
+    args = _bwd_case(np.random.default_rng(100 + t), 2, 3, t, cuda_device, "btdh", torch.bfloat16, carried)
+    before = wkv6_bwd.launches
+    got = wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    assert wkv6_bwd.launches == before + 1
+    _close_bwd(got, wkv6_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carried", [False, True])
+def test_k5b_kernel_with_extreme_decays_across_chunk_edges(cuda_device, carried):
+    """Decays of 1e-30 and of 1 - 1e-7 mixed in at random, and on the last step of every chunk and the
+    first of the next: the closed form's products of decays across a chunk, its 8-step blocks and the
+    chunk edges meet both ends."""
+    rng = np.random.default_rng(21)
+    b, h, t = 2, 3, 3 * K5B_CHUNK + 5
+    w = rng.uniform(0.3, 0.99, (b, h, t, 64))
+    pick = rng.random((b, h, t, 64))
+    w = np.where(pick < 0.2, 1e-30, np.where(pick > 0.8, 1 - 1e-7, w))
+    edges = [e + d for e in range(K5B_CHUNK, t, K5B_CHUNK) for d in (-1, 0)]
+    w[:, :, edges, ::2] = 1e-30
+    w[:, :, edges, 1::2] = 1 - 1e-7
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda_device)
+    args = _bwd_case(rng, b, h, t, cuda_device, "btdh", torch.bfloat16, carried, w=w)
+    _close_bwd(wkv6_bwd(*args), wkv6_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+def test_k5b_kernel_gives_the_same_bits_twice(cuda_device):
+    """Every sum (the sweep over the chunk edges, the rows' KER sums, du over the chunks) has a fixed
+    order and no atomics: two calls are equal bit for bit."""
+    args = _bwd_case(np.random.default_rng(22), 4, 8, 300, cuda_device, "btdh", torch.bfloat16, True)
+    first, second = wkv6_bwd(*args), wkv6_bwd(*args)
+    for name, g1, g2 in zip(("dr", "dk", "dv", "dw", "du", "ds0"), first, second):
+        assert torch.equal(g1, g2), name
+
+
 @pytest.mark.cuda
 def test_k5b_kernel_copies_views_whose_rows_are_not_16_byte_aligned(cuda_device):
     """Rows of a [.., 68] storage (bf16, 136 bytes apart) are handed to K5b as contiguous copies,
@@ -651,6 +697,56 @@ def test_k6_kernel_writes_the_state_in_place_on_card(cuda_device):
     want_y, want_h = selective_scan_plain(x, dt, bm, cm, a, d_skip, h0)
     _scan_close(torch.cat(ys, dim=1), want_y)
     _scan_close(state, want_h)
+
+
+K6_CHUNK = 16  # steps K6 stages at a time (csrc/mamba_scan.cu, CH); 64 channels a block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [K6_CHUNK - 1, K6_CHUNK, K6_CHUNK + 1, 2 * K6_CHUNK + 1])
+@pytest.mark.parametrize("ds", [1, 5, 16])
+def test_k6_kernel_across_its_staging_edges(cuda_device, s, ds):
+    """S on either side of the double-buffered chunks, ds at 1, 5 and 16, and di = 100 (a block of 64 and
+    a ragged one of 36), from a carried state."""
+    rng = np.random.default_rng(200 + s + ds)
+    args = _scan_inputs(rng, 2, s, 100, ds, torch.bfloat16, cuda_device, True)
+    y, h = selective_scan(*args)
+    want_y, want_h = selective_scan_plain(*args)
+    _scan_close(y, want_y)
+    _scan_close(h, want_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds,di", [(16, 1000), (5, 100), (1, 37)])
+def test_k6_decode_step_in_place(cuda_device, ds, di):
+    """The one-step kernel (float4 rows at ds = 16, element by element otherwise, di not a multiple of a
+    block) updates the cache's tensor in place, and 5 steps equal one 5-step scan."""
+    rng = np.random.default_rng(210 + ds)
+    x, dt, bm, cm, a, d_skip, h0 = _scan_inputs(rng, 3, 5, di, ds, torch.bfloat16, cuda_device, True)
+    state = h0.clone()
+    ys = []
+    for t in range(5):
+        y, h = selective_scan(x[:, t:t + 1], dt[:, t:t + 1], bm[:, t:t + 1], cm[:, t:t + 1], a, d_skip, state, state)
+        assert h is state
+        ys.append(y)
+    want_y, want_h = selective_scan_plain(x, dt, bm, cm, a, d_skip, h0)
+    _scan_close(torch.cat(ys, dim=1), want_y)
+    _scan_close(state, want_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [5, 16])
+def test_k6b_holds_on_the_checkpoints_k6_writes_across_its_staging_edges(cuda_device, ds):
+    """K6 with checkpoints at S = 2 chunks + 1 and a ragged channel block; K6b from them against the
+    explicit reverse recurrence."""
+    rng = np.random.default_rng(220 + ds)
+    args, dy, dh = _k6b_case(rng, 2, 2 * K6_CHUNK + 1, 200, ds, torch.bfloat16, cuda_device, True)
+    y, h, hck = k6_ops._launch(*args, checkpoints=True)
+    want_y, want_h = selective_scan_plain(*args)
+    _scan_close(y, want_y)
+    _scan_close(h, want_h)
+    _k6b_close(selective_scan_bwd(*args[:6], dy, args[6], dh, checkpoints=hck),
+               selective_scan_bwd_plain(*args[:6], dy, args[6], dh))
 
 
 @pytest.mark.cuda
