@@ -246,7 +246,11 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    equal bit for bit), timed as a CUDA graph replay beside its bound (the
    function's least traffic, no checkpoints, or one exponential a state
    and step) and this design's own traffic (checkpoints, partial sums), the
-   plain version; K6 on the same scan inputs held against its plain
+   plain version; with ``K6B_OLD_SOURCE`` set (a directory holding an
+   earlier design's ``mamba_scan_bwd.cu``, same C interface) that design
+   too, held against the plain version and timed in turns (old, new, new,
+   old) on the same inputs, and the run fails unless the current design is
+   the faster; K6 on the same scan inputs held against its plain
    version (``WKV_TOL``) and timed without and with checkpoints beside its
    bound (the exponentials), its row under ``train`` in the kernels line;
    one more step of each traced by kernel group.  Phases 11 and 13 share
@@ -259,7 +263,12 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    parity matrix), x [4, 2048, 4096] bf16 (2048 tokens a rank, 2 experts a
    rank), forward and backward on ``dense`` (its EP form), ``a2a``,
    ``ppermute`` (a max-weight plan of the real routing), ``phase_pipelined``
-   and ``ragged_a2a`` (that plan's table row) and ``faulty:phase_pipelined``
+   and ``ragged_a2a`` (that plan's table row), ``hierarchical`` (the
+   two-level plan of the same traffic, ``hierarchical_plan``: two pods of
+   two, and one pod of four, where every pair is intra; each also under the
+   fp8 wire, which must leave one pod's output and gradients bit for bit
+   and engage for two pods within ``WIRE_REL_TOL`` of the bf16 wire's
+   output) and ``faulty:phase_pipelined``
    (a dead link the plan made under its mask avoids: equal to the
    unwrapped fabric bit for bit; one the plan routes: refused with
    ``FabricFaultError``): each against one process's dense fabric on the
@@ -275,7 +284,8 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    K2 within ``BF16_TOL``, K3 within ``WGRAD_REL_L2``/``WGRAD_MAX_REL``,
    as in phase 5), K1/K2/K3 launches and holds exact on every rank, the slots each rank sent against the
    fabric's ``dispatch_tokens`` (``phase_pipelined``: its emulation's
-   ``dispatch_tokens_padded``); ms a forward layer call.  14b: the launcher
+   ``dispatch_tokens_padded``; ``hierarchical``: its intra child's padded
+   count plus its inter child's exact one); ms a forward layer call.  14b: the launcher
    (``serve``) across the 4 ranks, 2-layer full-width Mixtral-8x7B under
    ``phase_pipelined`` with the controller (B = 4, prompt 256, 8 new
    tokens, 2 rounds, capacity 1.25): every rank's tokens and tables equal,
@@ -287,6 +297,17 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    that cuts nothing (``EP_CAPACITY``; neither run may cut a choice),
    within ``LOGITS_REL_TOL`` per row.  Every time is labelled as ranks sharing
    one card over gloo, staged through host memory: not a fabric's time.
+   14c (one process; run right after 6c, on its model): the same 4-layer
+   full-width Mixtral behind ``ServeEngine`` with ``dispatch="hierarchical"``
+   (``HIER_POD_SIZE`` over 6c's 8 virtual ranks, ``HIER_ENGINE_KW``): the
+   two-level device controller stepped inside the decode graph, two phases
+   of ``HIER_REQUESTS`` requests from 6c's token pools; all complete, a CPU
+   twin of both levels fed the routing the engine copied out ends each
+   phase in the card's state, the replay equals the eager step on copies
+   bit for bit at each phase's first step and after each re-plan (K1 held
+   in every layer of those steps), one prefill a bucket again with K1 and
+   K4 held must give the served row, launches exact; decode ms a step and
+   prefill ms a bucket printed (``hier_engine`` in the kernels line).
 
 It prints K4's extra numbers and K2's/K3's per-launch times (with the
 dgrad launch's library time and bound) one a line beside the card's name
@@ -309,6 +330,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -386,6 +408,11 @@ ENGINE_KW = dict(
 ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_SEED = 24, (17, 258), (8, 25), 6
 ENGINE_HOT, ENGINE_POOL = (6, 7), 64
 ENGINE_SLOT_PROMPTS = (17, 40, 63, 96, 129, 170, 220, 257)  # the per-slot check's ragged depths (prompt lengths)
+# the two-level controller behind the engine (phase 14c): 6c's knobs with dispatch="hierarchical" at the JAX
+# default pod size over the same 8 virtual ranks (no regime library: a flat-controller feature), two phases of
+# 16 requests from 6c's token pools
+HIER_POD_SIZE, HIER_REQUESTS = 2, 16
+HIER_ENGINE_KW = {k: v for k, v in ENGINE_KW.items() if k not in ("regime_slots", "regime_threshold")}
 # the fault-tolerant train loop (phase 8b): full-width Mixtral-8x7B cut to 1 layer, 1 x 2048 tokens (so the
 # chunked attention runs; the MoE shape of phases 5 and 7: C = 640), the fused device-controller step with ef8,
 # checkpoints every 5 steps keeping 1, one injected fault at step 7, then a second call resuming to step 12
@@ -634,7 +661,7 @@ def _ep_layer(world) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.core import FabricFaultError, FaultScenario, ScheduleTable, decompose, plan_schedule
+    from repro_torch.core import FabricFaultError, FaultScenario, ScheduleTable, decompose, hierarchical_plan, plan_schedule
     from repro_torch.models import moe as pmoe
     from repro_torch.parallel.fabric import FABRICS, wrap_faulty
     from repro_torch.parallel.sharding import ep_world
@@ -684,27 +711,41 @@ def _ep_layer(world) -> dict:
     masked = plan_schedule(decompose(traffic, "maxweight", link_mask=scenario.link_mask(0)), slack=1.5)
     masked_row = ScheduleTable.from_schedules([masked], k_max=n, clip=True, envelope="auto", device=dev).row(0)
     faulty = wrap_faulty("phase_pipelined", scenario)
-    cases = {"dense": ("dense", None), "a2a": ("a2a", None), "ppermute": ("ppermute", plan),
-             "phase_pipelined": ("phase_pipelined", table.row(0)), "ragged_a2a": ("ragged_a2a", table.row(0)),
-             faulty: (faulty, masked_row)}
+    # the two-level fabric: two pods of two and one pod of four (every pair intra), each also under the fp8 wire
+    htabs = {pod: hierarchical_plan(traffic, pod, n_layers=1, slack=1.5, quantum=8, device=dev) for pod in (2, 4)}
+    cases = {"dense": ("dense", None, {}), "a2a": ("a2a", None, {}), "ppermute": ("ppermute", plan, {}),
+             "phase_pipelined": ("phase_pipelined", table.row(0), {}), "ragged_a2a": ("ragged_a2a", table.row(0), {}),
+             faulty: (faulty, masked_row, {})}
+    for pod, suffix in ((2, ""), (4, "_pod4")):
+        for wire in ("bf16", "fp8"):
+            cases[f"hierarchical{suffix}{'_fp8' if wire == 'fp8' else ''}"] = (
+                "hierarchical", htabs[pod].row(0), {"pod_size": pod, "wire_dtype": wire})
+    quantized = ("hierarchical_fp8", "hierarchical_pod4_fp8")  # held against their bf16-wire twins below
     # unequal loss shares summing to 1 (a wrong all-gather backward shows), powers of two so that each rank's
     # bf16 cotangent is the whole one scaled exactly: 1/2, 1/4, ..., the last two alike
     share = 2.0 ** -min(me + 1, n - 1)
     rows, kept = {}, {}
     try:
-        for case, (dispatch, sched) in cases.items():
-            ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, dispatch=dispatch))
+        for case, (dispatch, sched, moe_kw) in cases.items():
+            ccfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, dispatch=dispatch, **moe_kw))
             what = f"phase 14a {case} rank {me}"
             r = _ep_layer_call(p, ccfg, x, sched, world, share=share, hold=what)
             row = {"slots": r["slots"], "launches": r["launches"], "paths": r["paths"], "held": r["held"]}
+            if case in ("phase_pipelined", "ragged_a2a", faulty, "hierarchical_pod4", "hierarchical_pod4_fp8"):
+                # copies: the all-reduce below sums the f32 router gradient in place
+                kept[case] = {k: r[k].clone() for k in ("y", "dx", "router", "w_gate", "w_up", "w_down")}
+            elif case in ("hierarchical", "hierarchical_fp8"):
+                kept[case] = {"y": r["y"].clone()}
             # the wrapper runs the plan made under its mask, which clips the dead pair's choices: it is held
-            # against the unwrapped fabric on that row below, not against the reference
-            for name in (() if case == faulty else ("w_gate", "w_up", "w_down")):
+            # against the unwrapped fabric on that row below, not against the reference; a quantized wire is held
+            # against its bf16 twin
+            apart = case == faulty or case in quantized
+            for name in (() if apart else ("w_gate", "w_up", "w_down")):
                 row[f"d{name}_rel_l2"] = _grad_rel(r[name], ref[name], f"{what} d{name}")
                 row[f"d{name}_err"] = float((r[name].float() - ref[name].float()).abs().max())
-            if case != faulty:
+            if not apart:
                 row["y_err"] = _bf16_err(r["y"], ref["y"], f"{what} output")
-            for name in (() if case == faulty else ("router", "dx")):
+            for name in (() if apart else ("router", "dx")):
                 part = r[name].float().contiguous()
                 dist.all_reduce(part, group=world.model_group)
                 row[f"d{name}_rel_l2"] = _grad_rel(part, ref[name], f"{what} d{name} summed over the ranks")
@@ -714,8 +755,6 @@ def _ep_layer(world) -> dict:
                 raise AssertionError(f"{what}: routing summed over the ranks differs from the reference's")
             if float(st["dropped"].sum()) != 0.0:
                 raise AssertionError(f"{what}: {float(st['dropped'].sum())} admitted choices dropped")
-            if case in ("phase_pipelined", "ragged_a2a", faulty):
-                kept[case] = {k: r[k] for k in ("y", "dx", "router", "w_gate", "w_up", "w_down")}
             # ms a forward layer call: every rank starts together, the slowest sets the pace
             times = []
             with torch.no_grad(), ep_world(world):
@@ -733,6 +772,19 @@ def _ep_layer(world) -> dict:
         for key, a in kept["ragged_a2a"].items():
             if not torch.equal(a, kept["phase_pipelined"][key]):
                 raise AssertionError(f"phase 14a rank {me}: ragged_a2a's {key} differs from phase_pipelined's")
+        # the fp8 wire crosses only the pod seam: one pod over every rank leaves every output and gradient bit for
+        # bit; two pods quantize the inter slots, engaged and within the wire codecs' bound (phase 6d's 0.1 of the
+        # bf16 output's max)
+        for key, a in kept["hierarchical_pod4_fp8"].items():
+            if not torch.equal(a, kept["hierarchical_pod4"][key]):
+                raise AssertionError(f"phase 14a rank {me}: hierarchical_pod4 under fp8: {key} differs from the bf16 wire's")
+        y_q, y_w = kept["hierarchical_fp8"]["y"].float(), kept["hierarchical"]["y"].float()
+        q_err, q_top = float((y_q - y_w).abs().max()), float(y_w.abs().max())
+        if not 0.0 < q_err <= WIRE_REL_TOL["fp8"] * q_top:
+            raise AssertionError(f"phase 14a rank {me}: hierarchical under fp8 differs from the bf16 wire by {q_err:.4g} "
+                                 f"(max |y| {q_top:.4g}; engaged and within {WIRE_REL_TOL['fp8']} of it expected)")
+        rows["hierarchical_fp8"]["wire_err"] = q_err
+        rows["hierarchical_fp8"]["wire_rel_err"] = q_err / q_top
         # the wrapper's pass through equals the unwrapped fabric on the same (masked) row, bit for bit
         pcfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, dispatch="phase_pipelined"))
         plain = _ep_layer_call(p, pcfg, x, masked_row, world, share=share)
@@ -753,9 +805,16 @@ def _ep_layer(world) -> dict:
                        "next_fabric": e.next_fabric}
     finally:
         FABRICS.pop(faulty, None)
+    e_local = m.n_experts // n
+    levels = {}
+    for pod, tab in htabs.items():
+        row_ = tab.row(0)
+        on_e = ((torch.arange(row_.inter.k_max, device=dev) < row_.inter.n_phases)[:, None] & row_.inter.valid).cpu().numpy()
+        levels[pod] = {"merged_env_slots": row_.envelope_slots(e_local), "env_i": row_.intra.envelope_slots(e_local),
+                       "env_e": row_.inter.envelope_slots(e_local), "inter_on": on_e}
     return {"rows": rows, "refused": refused, "routed": routed, "ref_launches": ref["launches"],
-            "plan": plan, "envelope": table.envelope, "env_slots": table.envelope_slots(m.n_experts // n),
-            "t_local": EP_B * s_loc, "e_local": m.n_experts // n}
+            "plan": plan, "envelope": table.envelope, "env_slots": table.envelope_slots(e_local),
+            "t_local": EP_B * s_loc, "e_local": e_local, "levels": levels}
 
 
 def _ep_serve(world) -> dict:
@@ -848,6 +907,9 @@ def ep_phase(dev, card: str, counted) -> tuple:
     faulty_name = next(c for c in lay0["rows"] if c.startswith("faulty:"))
     k1_per_call = {"dense": 1, "a2a": 1, "ppermute": 1, "phase_pipelined": live + 1, "ragged_a2a": live + 1,
                    faulty_name: live + 1}
+    hier_cases = {"hierarchical": 2, "hierarchical_fp8": 2, "hierarchical_pod4": 4, "hierarchical_pod4_fp8": 4}
+    for case, pod in hier_cases.items():  # the merged row's live phase slots, then the local block
+        k1_per_call[case] = sum(1 for v in lay0["levels"][pod]["merged_env_slots"] if v) + 1
     for r, rank in enumerate(ranks):
         lay = rank["layer"]
         for case, row in lay["rows"].items():
@@ -858,7 +920,7 @@ def ep_phase(dev, card: str, counted) -> tuple:
             if held_n != {"k1": want, "k2": want, "k3": want}:
                 fail(f"phase 14a {case} rank {r}: K1/K2/K3 held against their plain versions {held_n} times, "
                      f"expected {want} each")
-            path = "dense_ep" if case == "dense" else case
+            path = "dense_ep" if case == "dense" else "hierarchical" if case in hier_cases else case
             if row["paths"] != {path: 1}:
                 fail(f"phase 14a {case} rank {r}: layer calls {row['paths']}, expected one on {path}")
             for key, name in (("k1", "moe_gemm_grouped"), ("k2", "moe_gemm_grouped_dgrad"), ("k3", "moe_gemm_grouped_wgrad")):
@@ -879,6 +941,14 @@ def ep_phase(dev, card: str, counted) -> tuple:
         "ragged_a2a": ("dispatch_tokens", get_fabric("ragged_a2a").dispatch_tokens(n=EP_RANKS, schedule=plan, envelope=env)),
     }
     models[faulty_name] = ("none (the plan made under the link mask is not the modelled one)", None)
+    for case, pod in hier_cases.items():  # intra phases on the dense per-phase emulation, inter phases ragged
+        lv = lay0["levels"][pod]
+        models[case] = ("intra dispatch_tokens_padded + inter dispatch_tokens",
+                        get_fabric("phase_pipelined").dispatch_tokens_padded(
+                            n=EP_RANKS, envelope=e_local * np.asarray(lv["env_i"]))
+                        + get_fabric("ragged_a2a").dispatch_tokens(
+                            n=EP_RANKS, schedule=types.SimpleNamespace(valid=lv["inter_on"]),
+                            envelope=e_local * np.asarray(lv["env_e"])))
     ep_rows = {}
     for case in lay0["rows"]:
         rows_ = [rank["layer"]["rows"][case] for rank in ranks]
@@ -891,6 +961,14 @@ def ep_phase(dev, card: str, counted) -> tuple:
             **{key: max(row[key] for row in rows_) for key in rows_[0] if key.endswith(("_err", "_rel_l2"))},
         }
         e_ = ep_rows[case]
+        if case in ("hierarchical_fp8", "hierarchical_pod4_fp8"):
+            twin = "output and gradients bit for bit" if case == "hierarchical_pod4_fp8" else (
+                f"max |diff| {e_['wire_err']:.4g} ({e_['wire_rel_err']:.3g} of the bf16 output's max; tol "
+                f"{WIRE_REL_TOL['fp8']})")
+            print(f"phase 14a {case}: {e_['ms']:.1f} ms a forward layer call (the slowest rank's median of {EP_TIMED}) | "
+                  f"{sent:.0f} slots sent a rank ({kind} {model_slots:.0f}) | against its bf16-wire twin: {twin} | "
+                  f"{EP_LABEL} ({card})")
+            continue
         if case == faulty_name:
             print(f"phase 14a {case}: {e_['ms']:.1f} ms a forward layer call (the slowest rank's median of {EP_TIMED}) | "
                   f"{sent:.0f} slots sent a rank | {EP_LABEL} ({card})")
@@ -2241,12 +2319,142 @@ def main() -> None:
         del eng, rows, batched
         gc.collect()  # the engine's graph and caches, before the next phases' memory
         torch.cuda.empty_cache()
-        return main, pools["A"]
+        return main, pools
 
     # 6c. serve through the engine: the same model behind ServeEngine (the
     # JAX drift run's knobs), continuous batching over 8 slots at ragged
     # depths, the decode step one CUDA graph under the device controller
-    engine_launches, engine_pool = serve_engine_phase(model)
+    engine_launches, engine_pools = serve_engine_phase(model)
+    engine_pool = engine_pools["A"]
+
+    def hierarchical_engine_phase(model, pools) -> dict:
+        """Phase 14c (see the module doc).  Returns the main path's launches per kernel."""
+        from repro_torch.core import DeviceController, HierarchicalDeviceController
+        from repro_torch.serve import Request, ServeEngine
+
+        t_phase = time.perf_counter()
+        hcfg = dataclasses.replace(mcfg, moe=dataclasses.replace(mcfg.moe, dispatch="hierarchical",
+                                                                 pod_size=HIER_POD_SIZE))
+        saved_cfg, model.cfg = model.cfg, hcfg  # the model's layers read the dispatch from it
+        eng = ServeEngine(hcfg, model, **HIER_ENGINE_KW)
+        ctrl = eng._ctrl
+        if not isinstance(ctrl, HierarchicalDeviceController):
+            fail(f"phase 14c: the engine built a {type(ctrl).__name__}, not the two-level controller")
+        # a CPU twin of the two-level controller, fed the routing the engine copies to the host, step for step
+        twin = HierarchicalDeviceController(DeviceController(ctrl.intra.cfg, device="cpu"),
+                                            DeviceController(ctrl.inter.cfg, device="cpu"), ctrl.pod_size)
+        twin_state, fed = eng._state.clone("cpu"), []
+        rng = np.random.default_rng(ENGINE_SEED + 1)
+        kinds, comparing = {}, [False]
+        real_decode, real_prefill = eng._decode_once, eng._prefill_row
+        steps, prefill_ms, held, k_held = [], {}, [], {"prefill": {}, "decode": []}
+
+        def held_decode():
+            """The replay held against the eager step on copies (K1 held in every layer) at each phase's first
+            step and at the step after each re-plan."""
+            hold = not steps or steps[-1]["phase"] != phase[0] or steps[-1]["fire"]
+            if hold:
+                comparing[0] = True
+                ref, errs = kernels_held(f"phase 14c decode step {len(steps) + 1}", eng.step_on_copies, K1=LAYERS)
+                comparing[0] = False
+                k_held["decode"].append((len(steps) + 1, errs["K1"]))
+            t0 = time.perf_counter()
+            nxt = real_decode()
+            ms = (time.perf_counter() - t0) * 1e3
+            out = eng.split_outputs(eng.last_outputs)
+            fed.append((out["routing"].copy(), out["dropped"].copy()))
+            steps.append({"phase": phase[0], "ms": ms, "fire": out["fire"]})
+            if hold:
+                live = torch.from_numpy(np.flatnonzero(eng.batcher.live)).to(dev)
+                same = np.array_equal(eng.last_outputs, ref["outputs"]) and all(
+                    torch.equal(mine[key][live], theirs[key][live])
+                    for mine, theirs in zip(eng._caches, ref["caches"]) for key in mine
+                ) and all(torch.equal(leaf, ref["state"].leaves()[name]) for name, leaf in eng._state.leaves().items())
+                held.append((phase[0], len(steps), out["fire"]))
+                if not same:
+                    fail(f"phase 14c {phase[0]} decode step {len(steps)}: the graph replay differs from the eager "
+                         f"step function on copies of its inputs")
+            return nxt
+
+        def timed_prefill(req, bucket):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row, plen = real_prefill(req, bucket)
+            torch.cuda.synchronize()
+            if plen > 0:
+                prefill_ms.setdefault(bucket, []).append((time.perf_counter() - t0) * 1e3)
+            if plen > 0 and bucket not in k_held["prefill"]:
+                again, errs = kernels_held(f"phase 14c prefill bucket {bucket}", lambda: real_prefill(req, bucket),
+                                           K1=LAYERS, K4=LAYERS)
+                k_held["prefill"][bucket] = (errs["K1"], errs["K4"])
+                if not all(torch.equal(a[key], b[key]) for a, b in zip(row, again[0]) for key in a):
+                    fail(f"phase 14c prefill bucket {bucket}: the row differs from the same prefill with K1, K4 held")
+            return row, plen
+
+        eng._decode_once, eng._prefill_row = held_decode, timed_prefill
+        phase = [None]
+        reset_counts()
+        with counting_engine_steps(kinds, comparing):
+            for name in ("A", "B"):
+                phase[0] = name
+                arrivals = np.floor(np.cumsum(rng.exponential(1.0, HIER_REQUESTS))).astype(int)
+                reqs = [Request(prompt=rng.choice(pools[name], int(rng.integers(*ENGINE_PROMPT))),
+                                max_new_tokens=int(rng.integers(*ENGINE_NEW)), arrival=float(a)) for a in arrivals]
+                t0 = time.perf_counter()
+                out = eng.run(reqs)
+                wall = time.perf_counter() - t0
+                for routing, dropped in fed:
+                    twin.step(twin_state, routing, dropped)
+                fed.clear()
+                done, tokens = sum(r.done for r in reqs), sum(len(r.tokens) for r in reqs)
+                if done != len(reqs):
+                    fail(f"phase 14c {name}: {done} of {len(reqs)} requests completed")
+                for leaf_name, leaf in eng._state.leaves().items():
+                    mine, theirs = leaf.cpu(), twin_state.leaves()[leaf_name]
+                    ok = torch.allclose(mine, theirs, rtol=1e-6, atol=0) if mine.is_floating_point() else \
+                        torch.equal(mine, theirs)
+                    if not ok:
+                        fail(f"phase 14c {name}: controller leaf {leaf_name} differs from the CPU twin's")
+                m = out["controller"]
+                print(f"phase 14c {name}: completed {done}/{len(reqs)} | {tokens} tokens in {wall:.2f} s, "
+                      f"{tokens / wall:.1f} tok/s | two-level controller: re-plans {m['device_replans']} (intra "
+                      f"{m['intra']['device_replans']}, inter {m['inter']['device_replans']}), drop fraction "
+                      f"{m['drop_fraction']:.4f}; the CPU twin fed the same routing agrees leaf for leaf ({card})")
+        counted = read_counts()
+        del eng._decode_once, eng._prefill_row
+        main, captured, warmup = engine_launches_of(kinds, counted, eng.graph_replays)
+        n_prefill, n_decode = sum(len(v) for v in prefill_ms.values()), len(steps)
+        expect = dict.fromkeys(COUNTED, 0)
+        expect.update(moe_gemm_grouped=LAYERS * (n_prefill + n_decode + warmup["calls"]),
+                      flash_attention_fwd=LAYERS * n_prefill)
+        if captured["calls"] != 1 or main != expect or eng.graph_replays != n_decode:
+            fail(f"phase 14c: launches {main}, expected {expect}; {captured['calls']} captures, "
+                 f"{eng.graph_replays} replays of {n_decode} decode steps")
+        if not k_held["prefill"] or not k_held["decode"]:
+            fail(f"phase 14c: K1/K4 held in prefills {k_held['prefill']}, K1 in decode steps {k_held['decode']}")
+        plain = [st["ms"] for st in steps if not st["fire"]]
+        fired = [e for e in eng.replan_log]
+        row = {"decode_ms_per_step": float(np.median(plain)), "decode_steps": n_decode,
+               "prefill_ms": {b: float(np.median(v)) for b, v in sorted(prefill_ms.items())},
+               "replans": [(e["decode_step"], e["kind"], e["ms"]) for e in fired],
+               "held_max_abs_err": {"K1": max(v for _, v in k_held["decode"]),
+                                    "K4": max(e[1] for e in k_held["prefill"].values())},
+               "launches": main, "wall_s": time.perf_counter() - t_phase}
+        print(f"phase 14c: full-width Mixtral-8x7B ({LAYERS} layers) through ServeEngine with dispatch hierarchical "
+              f"(pod size {HIER_POD_SIZE} over {HIER_ENGINE_KW['n_ranks']} virtual ranks) | decode as one graph "
+              f"{row['decode_ms_per_step']:.2f} ms a step (host clock, median of {len(plain)} steps without a "
+              f"re-plan) | batch-1 prefill {row['prefill_ms']} ms a bucket | re-plans {row['replans']} | replay held "
+              f"against the eager step at {len(held)} steps | K1 held in every layer of those steps (max_abs_err "
+              f"{row['held_max_abs_err']['K1']:.4g}) and K1/K4 in one prefill a bucket (K4 max_abs_err "
+              f"{row['held_max_abs_err']['K4']:.4g}) | launches {main} | {row['wall_s']:.1f} s ({card})")
+        model.cfg = saved_cfg
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return row
+
+    # 14c. the two-level controller behind the engine on the same model (run here, while the model is alive)
+    hier_engine = hierarchical_engine_phase(model, engine_pools)
 
     del model, drift_table, dres
     torch.cuda.empty_cache()
@@ -3501,6 +3709,26 @@ def main() -> None:
                 "bound_bytes": nbytes, "design_bytes": design_bytes, "design_bytes_ms": design_bytes / HBM_BYTES_PER_S * 1e3,
                 "forward_checkpointed_ms": k6_train_row["checkpointed_ms"], "forward_ms": k6_train_row["ms"],
             }
+            old_src = os.environ.get("K6B_OLD_SOURCE")
+            if old_src:
+                # an earlier design of K6b (a directory holding its mamba_scan_bwd.cu, same C interface), built
+                # beside this one and timed on the same inputs in turns: old, new, new, old
+                old_lib = k6.bind_bwd(build.load("mamba_scan_bwd", csrc=str(Path(old_src).resolve())))
+                old_got = k6._launch_bwd(x6, dt6, b6, c6, a6, d6, dy6, h06, dhf6, hck6, lib=old_lib)
+                for name, g, w in zip(("dx", "ddt", "db", "dc", "da", "dd_skip", "dh0"), old_got, want):
+                    if w is not None and rel_l2(g, w) > SCAN_BWD_TOL:
+                        fail(f"K6b's earlier design {name}: rel L2 {rel_l2(g, w):.3g} against the plain version")
+                turns = {"old": [], "new": []}
+                for which in ("old", "new", "new", "old"):
+                    lib_ = old_lib if which == "old" else None
+                    turns[which].append(graph_ms(
+                        lambda: k6._launch_bwd(x6, dt6, b6, c6, a6, d6, dy6, h06, dhf6, hck6, lib=lib_), 5))
+                old_ms, new_ms = (sum(v) / len(v) for v in (turns["old"], turns["new"]))
+                k6b_row["earlier_design"] = {"source": old_src, "turns_ms": turns, "old_ms": old_ms, "new_ms": new_ms}
+                print(f"K6b against its earlier design ({old_src}) in turns old, new, new, old: {turns['old'][0]:.4f}, "
+                      f"{turns['new'][0]:.4f}, {turns['new'][1]:.4f}, {turns['old'][1]:.4f} ms ({card})")
+                if new_ms >= old_ms:
+                    fail(f"K6b {new_ms:.4f} ms is not faster than its earlier design's {old_ms:.4f} ms")
             print(f"K6b backward: {k6b_row['shape']} | kernel {k6b_row['ms']:.4f} ms (CUDA graph replay) | plain "
                   f"{k6b_row['plain_ms']:.1f} ms | library: none (no PyTorch call computes it) | bound "
                   f"{k6b_row['bound_ms']:.4f} ms ({k6b_row['bound_by']}, {nbytes / 1e9:.3f} GB with no checkpoints; "
@@ -3540,7 +3768,7 @@ def main() -> None:
                "rwkv_train": rwkv_train_launches[name], "slice12": slice12_launches[name],
                "slice12_engine": engine12_launches[name], "slice12_long_500k": long12_launches[name],
                "train13": train13_launches[name], "ep_layer": ep_layer_launches[name],
-               "ep_serve": ep_serve_launches[name]}
+               "ep_serve": ep_serve_launches[name], "hier_engine": hier_engine["launches"][name]}
         for name in COUNTED
     }
     kernels = [

@@ -24,6 +24,9 @@ class MoECfg:
     # dispatch fabric by name; on one device every name runs the virtual
     # dense fabric, which still enforces a ScheduleTable row's admission
     dispatch: str = "dense"
+    # ranks per pod for the hierarchical fabric (must divide the EP size;
+    # core.check_pod_size names the valid divisors); the flat fabrics ignore it
+    pod_size: int = 2
     # wire codec of the dispatched slots: "bf16" (identity), "fp8" or "int8" (parallel/fabric/codec.py)
     wire_dtype: str = "bf16"
     schedule_strategy: Literal["maxweight", "shift"] = "maxweight"

@@ -203,7 +203,8 @@ def make_serving_controller(
 ):
     """``(runtime, scenario)`` for serving: a round-granularity
     ``ControllerConfig`` (fast EMA, short cooldown, one shared plan, since
-    round estimates are global) on ``device``, and the ``DriftScenario``
+    round estimates are global) on ``device`` (a ``HierarchicalRuntime``
+    for ``dispatch="hierarchical"``), and the ``DriftScenario``
     that synthesizes the request mix.  ``(None, None)`` when the arch has
     no MoE or its expert count does not tile ``n_ranks``."""
     cfg = model_cfg
@@ -219,10 +220,12 @@ def make_serving_controller(
         group_by=group_by,
     )
     if cfg.moe.dispatch == "hierarchical":
-        raise NotImplementedError(
-            "dispatch='hierarchical': the two-level controller comes with the multi-rank fabrics (ROADMAP M10)"
-        )
-    runtime = ScheduleRuntime(ctrl_cfg, cfg.n_moe_layers, device=device)
+        # two-level controller: each level re-plans on its own half of the traffic
+        from repro_torch.core.hierarchical import HierarchicalRuntime
+
+        runtime = HierarchicalRuntime(ctrl_cfg, cfg.n_moe_layers, pod_size=cfg.moe.pod_size, device=device)
+    else:
+        runtime = ScheduleRuntime(ctrl_cfg, cfg.n_moe_layers, device=device)
     scenario = DriftScenario(
         drift, cfg.moe.n_experts, shift_step=max(rounds // 2, 1), window=max(rounds // 2, 1), seed=drift_seed
     )

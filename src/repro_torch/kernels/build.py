@@ -5,7 +5,9 @@ library under ``<checkout>/build/kernels/`` with a plain C interface
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), named by a
 hash of the source, every ``csrc/*.cuh`` header and the flags (with any
 ``-D`` defines a caller asks for), so an edited source or header rebuilds.
-``build_all`` starts one ``nvcc`` per source at once and waits for all.
+``build_all`` starts one ``nvcc`` per source at once and waits for all;
+``csrc`` builds a source of the same name from another directory (a
+profile timing an earlier design beside the current one).
 Nothing here runs at import; a failed build raises with the compiler's
 output, and there is no path back to a plain version.
 """
@@ -50,25 +52,27 @@ def _flags(defines=()) -> tuple[str, ...]:
     return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
 
 
-def _lib_path(name: str, defines=()) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def _lib_path(name: str, defines=(), csrc=None) -> Path:
+    h = hashlib.sha256((Path(csrc or CSRC) / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES, defines=()) -> dict[str, Path]:
+def build_all(names=SOURCES, defines=(), csrc=None) -> dict[str, Path]:
     """Compile every missing library in parallel, each with ``-D`` for
-    each of ``defines``; returns name -> path."""
+    each of ``defines``, from ``csrc`` (default: the package's
+    ``csrc/``); returns name -> path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name, defines) for name in names}
+    src_dir = Path(csrc or CSRC)
+    paths = {name: _lib_path(name, defines, src_dir) for name in names}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     procs = {}
     for name, path in todo.items():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", tmp, str(src_dir / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
@@ -127,14 +131,15 @@ def ptxas_kernels(name: str) -> list[dict]:
     return [k for k in kernels.values() if "registers" in k]
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
+def load(name: str, defines=(), csrc=None) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (building it if needed);
     ``defines`` builds a variant with ``-D`` for each, as a profile of a
-    kernel asks for."""
-    key = (name, *defines)
+    kernel asks for, and ``csrc`` the source of that name in another
+    directory."""
+    key = (name, str(csrc or ""), *defines)
     lib = _LIBS.get(key)
     if lib is None:
-        path = build_all((name,), defines)[name]
+        path = build_all((name,), defines, csrc)[name]
         lib = ctypes.CDLL(str(path))
         _LIBS[key] = lib
     return lib

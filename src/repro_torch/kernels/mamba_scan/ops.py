@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["MAX_STATE", "ckpt_steps", "selective_scan", "selective_scan_plain", "selective_scan_bwd",
+__all__ = ["MAX_STATE", "bind_bwd", "ckpt_steps", "selective_scan", "selective_scan_plain", "selective_scan_bwd",
            "selective_scan_bwd_plain"]
 
 MAX_STATE = 16  # states a channel the kernel holds in registers (Mamba's d_state)
@@ -121,16 +121,22 @@ def _fwd():
     return fn
 
 
-@functools.cache
-def _bwd_lib():
-    """The backward kernel's library, bound once."""
-    lib = build.load("mamba_scan_bwd")
+def bind_bwd(lib):
+    """Set the argument types of a K6b library's C entry points (the
+    package's build, or another build of the same interface that a profile
+    times beside it); returns ``lib``."""
     lib.mamba_scan_bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.mamba_scan_bwd.restype = ctypes.c_int
     for name in ("mamba_scan_bwd_ckpt_steps", "mamba_scan_bwd_block_channels"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _bwd_lib():
+    """The backward kernel's library, bound once."""
+    return bind_bwd(build.load("mamba_scan_bwd"))
 
 
 def ckpt_steps() -> int:
@@ -158,8 +164,8 @@ def _check_inputs(what, x, dt, b, c, a, d_skip, extra):
     return bsz, s, di, ds
 
 
-def _n_checkpoints(s: int) -> int:
-    return -(-s // ckpt_steps())
+def _n_checkpoints(s: int, ck: int | None = None) -> int:
+    return -(-s // (ck or ckpt_steps()))
 
 
 def _launch(x, dt, b, c, a, d_skip, h0=None, h_out=None, checkpoints=False):
@@ -186,18 +192,19 @@ def _launch(x, dt, b, c, a, d_skip, h0=None, h_out=None, checkpoints=False):
     return (y, h, hck) if checkpoints else (y, h)
 
 
-def _launch_bwd(x, dt, b, c, a, d_skip, dy, h0, dh_final, checkpoints):
+def _launch_bwd(x, dt, b, c, a, d_skip, dy, h0, dh_final, checkpoints, lib=None):
     """One launch of K6b (the scan kernel and the ordered sums of its
-    partials); returns what ``selective_scan_bwd_plain`` returns."""
+    partials); returns what ``selective_scan_bwd_plain`` returns.  ``lib``
+    (default the package's build) is a library bound by ``bind_bwd``."""
+    lib = lib or _bwd_lib()
     bsz, s, di, ds = x.shape[0], x.shape[1], x.shape[2], a.shape[1]
     state = (bsz, di, ds)
     _check_inputs("selective_scan backward kernel", x, dt, b, c, a, d_skip, {
         "dy": (dy, (bsz, s, di)), "h0": (h0, state), "dh_final": (dh_final, state),
-        "checkpoints": (checkpoints, (bsz, _n_checkpoints(s), ds, di))})
+        "checkpoints": (checkpoints, (bsz, _n_checkpoints(s, lib.mamba_scan_bwd_ckpt_steps()), ds, di))})
     if checkpoints is None:
         raise ValueError("selective_scan backward kernel: needs the forward's checkpoints (_launch(..., checkpoints=True))")
     dev = x.device
-    lib = _bwd_lib()
     x, dt, b, c, a, d_skip, dy, checkpoints = (
         t.contiguous() for t in (x, dt, b, c, a, d_skip, dy, checkpoints))
     dh_final = None if dh_final is None else dh_final.contiguous()

@@ -28,7 +28,8 @@ steps)``.  Each
 step of ``train`` logs loss, grad norm, step ms and tokens/s; ``main``
 goes through ``train_loop`` (checkpoints under ``--ckpt``, every
 ``max(steps // 4, 10)`` steps and at the last, optional ``--grad-compress
-ef8``, ``--wire-dtype fp8|int8`` for a MoE config), as the JAX launcher
+ef8``, ``--wire-dtype fp8|int8`` and, with ``--dispatch hierarchical``,
+``--pod-size`` for a MoE config), as the JAX launcher
 does, and logs every 10th step; a second run
 on the same ``--ckpt`` resumes from its latest checkpoint.
 ``plan_controller`` builds the device controller of the fused step.
@@ -51,7 +52,7 @@ from repro_torch.core.device_controller import DeviceController
 from repro_torch.core.runtime import ControllerConfig, ScheduleRuntime
 from repro_torch.core.schedule import ScheduleTable
 from repro_torch.data import DataConfig, SyntheticStream
-from repro_torch.launch.dryrun import build_schedule, expected_traffic
+from repro_torch.launch.dryrun import build_hierarchical_table, build_schedule, expected_traffic
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.parallel.fabric import codec_names, consumes_table
@@ -74,12 +75,20 @@ class TrainResult:
         return [self.tokens_per_step / (ms / 1e3) for ms in self.step_ms]
 
 
-def plan_table(cfg, *, batch: int, seq: int, virtual_ranks: int, device) -> ScheduleTable | None:
-    """The JAX launcher's lossless plan as a per-layer table, or None when
-    the arch's dispatch consumes no table rows."""
+def plan_table(cfg, *, batch: int, seq: int, virtual_ranks: int, device):
+    """The JAX launcher's lossless plan as a per-layer ``ScheduleTable``
+    (a ``HierarchicalTable`` for ``dispatch="hierarchical"``, planned per
+    level at ``cfg.moe.pod_size``), or None when the arch's dispatch
+    consumes no table rows."""
     if cfg.moe is None or not consumes_table(cfg.moe.dispatch):
         return None
     t_rank = max(batch * seq // virtual_ranks, 1)
+    if cfg.moe.dispatch == "hierarchical":
+        table = build_hierarchical_table(cfg, virtual_ranks, t_rank, cfg.n_moe_layers, plan="lossless",
+                                         device=device)
+        log.info("planned hierarchical schedule (pod_size %d): %d intra + %d inter phase slots", cfg.moe.pod_size,
+                 table.intra.k_max, table.inter.k_max)
+        return table
     sched = build_schedule(cfg, virtual_ranks, t_rank, strategy=cfg.moe.schedule_strategy, plan="lossless")
     return ScheduleTable.from_schedules([sched] * cfg.n_moe_layers, envelope="auto", device=device)
 
@@ -148,6 +157,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--dispatch", default=None, help="MoE dispatch name (one device: the virtual fabric)")
     ap.add_argument("--wire-dtype", default=None, choices=[None, *codec_names()],
                     help="wire codec for dispatch payloads (fp8/int8 quantize the slots that cross ranks)")
+    ap.add_argument("--pod-size", type=int, default=None,
+                    help="ranks per pod for --dispatch=hierarchical (must divide the virtual ranks; pod-local traffic "
+                         "rides the electrical intra level, the rest the circuit-scheduled inter level)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compress", default=None, choices=[None, "ef8"])
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt"))
@@ -161,6 +173,8 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.dispatch))
     if cfg.moe is not None and args.wire_dtype:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, wire_dtype=args.wire_dtype))
+    if cfg.moe is not None and args.pod_size:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, pod_size=args.pod_size))
     model = Model(cfg, device=args.device, param_dtype=torch.float32, requires_grad=True, seed=0)
     log.info("arch %s, %d layers, %.3f B params", cfg.name, cfg.n_layers,
              sum(p.numel() for p in model.parameters()) / 1e9)

@@ -38,11 +38,12 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.hierarchical import HierarchicalTable
 from repro_torch.core.schedule import ScheduleTable
 from repro_torch.kernels.moe_gemm import ops as k1
 from repro_torch.models.layers import normal_param
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.fabric import FABRICS, FabricContext, get_fabric, known_fabric, resolve_fabric
+from repro_torch.parallel.fabric import FABRICS, FabricContext, get_fabric, resolve_fabric
 from repro_torch.parallel.fabric import geometry as geom
 from repro_torch.parallel.sharding import current_world
 
@@ -199,7 +200,8 @@ def moe_apply(
 ):
     """The MoE FFN on x [B, S, d] through the fabric ``cfg.moe.dispatch``
     names.  ``schedule`` is what that fabric consumes: None, a static
-    ``A2ASchedule`` (ppermute) or a ``ScheduleTable`` row.  With
+    ``A2ASchedule`` (ppermute), a ``ScheduleTable`` row or a
+    ``HierarchicalTable`` row.  With
     ``return_stats`` also returns ``{"routing", "dropped", "admitted"}``:
     realized pre-drop demand [n_src, E], plan-admitted choices that
     packing cut [n_src] and the plan-admitted choices [n_src], one row
@@ -209,10 +211,10 @@ def moe_apply(
     Vacated slots are still routed and admitted."""
     m = cfg.moe
     mode = m.dispatch
-    if isinstance(schedule, ScheduleTable) and not schedule.is_row:
+    if isinstance(schedule, (ScheduleTable, HierarchicalTable)) and not schedule.is_row:
         raise ValueError("moe_apply consumes per-layer rows — pass table.row(l)")
-    if not known_fabric(mode):
-        get_fabric(mode)  # raises, listing the registry
+    if mode != "scheduled":
+        get_fabric(mode)  # unknown names fail fast, listing the registry
     world = current_world()
     n = 1 if world is None else world.n
     if n == 1 or mode == "dense" or x.shape[1] % n:

@@ -20,6 +20,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.hierarchical import HierarchicalTable
 from repro_torch.core.schedule import A2ASchedule, ScheduleTable
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, rwkv
@@ -188,8 +189,8 @@ def schedule_rows(schedule, cfg: ModelConfig) -> list:
         return [None] * cfg.n_layers
     if isinstance(schedule, A2ASchedule):
         return [None if i is None else schedule for i in moe_rows(cfg)]
-    if not isinstance(schedule, ScheduleTable) or schedule.is_row:
-        raise TypeError("the stack takes a full ScheduleTable (one row per MoE layer) or None")
+    if not isinstance(schedule, (ScheduleTable, HierarchicalTable)) or schedule.is_row:
+        raise TypeError("the stack takes a full ScheduleTable or HierarchicalTable (one row per MoE layer) or None")
     if schedule.num_layers != cfg.n_moe_layers:
         raise ValueError(f"table has {schedule.num_layers} rows for {cfg.n_moe_layers} MoE layers")
     return [None if i is None else schedule.row(i) for i in moe_rows(cfg)]

@@ -14,20 +14,21 @@ registers them:
                    (swapped without a rebuild; dense per-phase emulation)
 ``ragged_a2a``     the same geometry, each phase's transfer exactly the
                    live envelope slots of its pair
+``hierarchical``   a ``HierarchicalTable`` row: intra-pod phases on
+                   ``phase_pipelined``, inter-pod phases on ``ragged_a2a``,
+                   only the inter slots on the wire codec
 =================  =========================================================
 
 plus the ``scheduled`` alias (by schedule type) and ``faulty:<base>``
 wrappers (``wrap_faulty``).  On one device every name runs the virtual
 dense fabric, as the JAX package does; across ranks a world
-(``parallel.sharding``) must be current.  ``hierarchical`` is a name of
-the JAX registry whose fabric comes later (ROADMAP.md §1).
+(``parallel.sharding``) must be current.
 Counterpart of ``repro/parallel/fabric/__init__.py``.
 """
 
 from repro_torch.parallel.fabric.base import (
     DEGRADATION_CHAIN,
     FABRICS,
-    UNPORTED_FABRICS,
     Fabric,
     FabricContext,
     PackedTokens,
@@ -36,7 +37,6 @@ from repro_torch.parallel.fabric.base import (
     consumes_table,
     fabric_names,
     get_fabric,
-    known_fabric,
     next_fabric,
     register_fabric,
     resolve_fabric,
@@ -50,12 +50,13 @@ from repro_torch.parallel.fabric.a2a import MonolithicA2AFabric
 from repro_torch.parallel.fabric.ppermute import PPermuteFabric
 from repro_torch.parallel.fabric.phase_pipelined import PhasePipelinedFabric
 from repro_torch.parallel.fabric.ragged_a2a import RaggedA2AFabric
+from repro_torch.parallel.fabric.hierarchical import HierarchicalFabric
 from repro_torch.parallel.fabric.faulty import FaultInjectionFabric, wrap_faulty
 
 __all__ = [
-    "CODECS", "DEGRADATION_CHAIN", "FABRICS", "UNPORTED_FABRICS", "DenseFabric", "Fabric", "FabricContext",
-    "FaultInjectionFabric", "MonolithicA2AFabric", "PPermuteFabric", "PackedTokens", "PhasePipelinedFabric",
+    "CODECS", "DEGRADATION_CHAIN", "FABRICS", "DenseFabric", "Fabric", "FabricContext", "FaultInjectionFabric",
+    "HierarchicalFabric", "MonolithicA2AFabric", "PPermuteFabric", "PackedTokens", "PhasePipelinedFabric",
     "RaggedA2AFabric", "WireCodec", "as_fabric_schedule", "codec_names", "consumes_schedule", "consumes_table",
-    "fabric_names", "geometry", "get_codec", "get_fabric", "known_fabric", "next_fabric", "register_fabric",
-    "resolve_fabric", "wrap_faulty",
+    "fabric_names", "geometry", "get_codec", "get_fabric", "next_fabric", "register_fabric", "resolve_fabric",
+    "wrap_faulty",
 ]

@@ -10,11 +10,6 @@ fabrics given the same plan admit the same choices; they differ only in
 movement and padding.  Every fabric emits the stats contract
 ``{"routing", "dropped"}`` (plus the port's ``admitted``).
 
-``hierarchical`` is a name of the JAX registry whose fabric is not
-ported yet: ``consumes_schedule`` and ``consumes_table`` answer for it
-as JAX does, one device runs it as the virtual dense fabric (as JAX
-does), and ``get_fabric`` raises for it.
-
 Counterpart of ``repro/parallel/fabric/base.py``.
 """
 
@@ -33,7 +28,6 @@ from repro_torch.parallel.fabric.codec import get_codec
 __all__ = [
     "DEGRADATION_CHAIN",
     "FABRICS",
-    "UNPORTED_FABRICS",
     "Fabric",
     "FabricContext",
     "PackedTokens",
@@ -42,7 +36,6 @@ __all__ = [
     "consumes_table",
     "fabric_names",
     "get_fabric",
-    "known_fabric",
     "next_fabric",
     "register_fabric",
     "resolve_fabric",
@@ -51,9 +44,6 @@ __all__ = [
 # each backend's fallback when the health FSM quarantines it: richest
 # movement first, ending at the fabric-free dense path that cannot fault
 DEGRADATION_CHAIN = ("ragged_a2a", "phase_pipelined", "a2a", "dense")
-
-# JAX registry names whose fabric is not ported yet -> their schedule_kind
-UNPORTED_FABRICS = {"hierarchical": "row"}
 
 
 def next_fabric(name: str) -> str | None:
@@ -270,18 +260,8 @@ def _unknown(name: str) -> ValueError:
     )
 
 
-def known_fabric(name: str) -> bool:
-    """A dispatch value the JAX package accepts: a registered fabric, an
-    unported one, or the ``scheduled`` alias."""
-    return name in FABRICS or name in UNPORTED_FABRICS or name == _SCHEDULED_ALIAS
-
-
 def get_fabric(name: str) -> Fabric:
     """Look up a backend by exact registry name."""
-    if name in UNPORTED_FABRICS:
-        raise NotImplementedError(
-            f"the {name!r} fabric is not ported yet (ROADMAP.md §1); one device runs it as the virtual dense fabric"
-        )
     try:
         return FABRICS[name]
     except KeyError:
@@ -305,8 +285,6 @@ def resolve_fabric(name: str, schedule=None) -> Fabric:
 
 
 def _schedule_kind(name: str) -> str:
-    if name in UNPORTED_FABRICS:
-        return UNPORTED_FABRICS[name]
     return get_fabric(name).schedule_kind
 
 

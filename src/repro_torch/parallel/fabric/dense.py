@@ -18,8 +18,10 @@ f32 all-reduce.  This is what ``moe_apply`` runs for ``dispatch="dense"``
 and for shapes the EP split cannot cut (decode at S = 1), as JAX's
 ``moe_apply`` falls back on a mesh.
 
-Counterpart of ``repro/parallel/fabric/dense.py``; its hierarchical-row
-branch comes with the hierarchical tables.
+A ``HierarchicalTable`` row is served too (the one-device parity path of
+the hierarchical fabric): admission reads the pair's summed per-pair
+caps, and only pod-crossing slots ride the wire.  Counterpart of
+``repro/parallel/fabric/dense.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.core.hierarchical import HierarchicalTable, check_pod_size
 from repro_torch.core.schedule import A2ASchedule
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.fabric import geometry as g
@@ -47,6 +50,11 @@ class DenseFabric(Fabric):
         static plan has no meaning without phases: dense layers ignore it)."""
         if schedule is None or isinstance(schedule, A2ASchedule):
             return None
+        if isinstance(schedule, HierarchicalTable):
+            if not schedule.is_row:
+                raise ValueError("dense: rejected a full HierarchicalTable — pass table.row(l)")
+            check_pod_size(schedule.n, schedule.pod_size)
+            return schedule
         return super().validate_schedule(schedule, n=n)
 
     def pack(self, ctx: FabricContext, x_loc, idx, gates) -> PackedTokens:
@@ -68,7 +76,12 @@ class DenseFabric(Fabric):
             # bucket's rank: the src/dst convention the admission mask enforces (padding slots die via live)
             dst_v = torch.arange(m.n_experts, device=x_loc.device) // (m.n_experts // row.n)
             src_v = (pos * row.n) // t
-            wire = live & (src_v != dst_v[:, None])
+            if isinstance(row, HierarchicalTable):
+                # two levels: only pod-crossing slots ride the inter wire (same-pod remote slots move on the
+                # electrical level, which the codec never touches)
+                wire = live & ~g.same_pod(src_v, dst_v[:, None], row.pod_size)
+            else:
+                wire = live & (src_v != dst_v[:, None])
         if admitted is None:
             admitted = torch.ones(t * m.top_k, dtype=torch.bool, device=x_loc.device)
         return PackedTokens(buf, pos, gate, live, admitted, wire=wire)

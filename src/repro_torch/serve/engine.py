@@ -30,7 +30,9 @@ Step functions:
   device half of the controller's transition (``step_device``).  Its
   outputs (next tokens, routing, dropped, ``fire``/``warm``/``best``) come
   back in one device-to-host copy; when ``fire`` is set the host re-plans eagerly,
-  in place, before the next replay.  The controller's envelope is static,
+  in place, before the next replay.  Under ``dispatch="hierarchical"`` the
+  controller is the two-level ``HierarchicalDeviceController``: both
+  levels step inside the graph, and ``fire`` is either level's.  The controller's envelope is static,
   so nothing forces a second capture.  On the CPU the same body runs
   eagerly.  A failed capture or replay raises.
 
@@ -47,7 +49,13 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.core import DeviceController, ScheduleTable, make_serving_controller
+from repro_torch.core import (
+    DeviceController,
+    HierarchicalDeviceController,
+    HierarchicalRuntime,
+    ScheduleTable,
+    make_serving_controller,
+)
 from repro_torch.core.lap import greedy_phases
 from repro_torch.models import Model
 from repro_torch.parallel.fabric import consumes_table
@@ -167,10 +175,16 @@ class ServeEngine:
             (runtime.n_layers, 1, moe.n_experts), float(self.batcher.n_slots * moe.top_k) / moe.n_experts, np.float32
         )
         runtime.observe(stats0)
-        ctrl, state = DeviceController.from_runtime(
-            runtime, drop_tolerance=drop_tolerance, hysteresis_steps=hysteresis_steps, regime_slots=regime_slots,
-            regime_threshold=regime_threshold, replan_penalty=replan_penalty, **plan_overrides,
-        )
+        if isinstance(runtime, HierarchicalRuntime):
+            # the composed fabric's two-level controller: the regime library and the penalty knobs are
+            # flat-controller features, as in the JAX engine
+            ctrl, state = HierarchicalDeviceController.from_runtime(runtime)
+        else:
+            ctrl, state = DeviceController.from_runtime(
+                runtime, drop_tolerance=drop_tolerance, hysteresis_steps=hysteresis_steps,
+                regime_slots=regime_slots, regime_threshold=regime_threshold, replan_penalty=replan_penalty,
+                **plan_overrides,
+            )
         self._runtime, self._ctrl, self._state = runtime, ctrl, state
         self._table = ctrl.table_of(state)  # over the state's plan tensors: re-plans show through
         self._prefill_table = runtime.table()

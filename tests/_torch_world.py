@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.configs.base import ModelConfig, MoECfg
-from repro_torch.core.schedule import ScheduleTable
+from repro_torch.core.hierarchical import hierarchical_decompose, hierarchical_plan
+from repro_torch.core.schedule import ScheduleTable, plan_schedule
 from repro_torch.kernels.moe_gemm import ops as k1
 from repro_torch.models import moe as pmoe
 from repro_torch.parallel import collectives as col
@@ -51,11 +52,19 @@ def build_table(plan, envelope, device="cpu") -> ScheduleTable:
     return ScheduleTable.from_schedules([plan], k_max=N_RANKS, clip=True, envelope=envelope, device=device)
 
 
+def build_hierarchical(traffic, pod_size: int, device="cpu"):
+    """The one-layer two-level table of ``traffic`` (``tests/multidev_fabric.py``'s knobs)."""
+    return hierarchical_plan(traffic, pod_size, n_layers=1, slack=1.5, quantum=8, device=device)
+
+
 def build_schedule(spec, device="cpu"):
-    """A case's schedule: None, an ``A2ASchedule`` (taken as it is) or
-    ``("row", plan, envelope)``, the row of a one-layer table."""
+    """A case's schedule: None, an ``A2ASchedule`` (taken as it is),
+    ``("row", plan, envelope)``, the row of a one-layer table, or
+    ``("hrow", traffic, pod_size)``, the row of a two-level table."""
     if isinstance(spec, tuple) and spec[0] == "row":
         return build_table(spec[1], spec[2], device).row(0)
+    if isinstance(spec, tuple) and spec[0] == "hrow":
+        return build_hierarchical(spec[1], spec[2], device).row(0)
     return spec
 
 
@@ -132,10 +141,27 @@ def fabric_world(world, spec: dict) -> dict:
     torch.manual_seed(0)
     x = torch.from_numpy(spec["x"])
     out = {}
-    for case, (dispatch, sched_spec) in spec["cases"].items():
+    for case, (dispatch, sched_spec, *moe_kw) in spec["cases"].items():
         cfg = layer_cfg(dispatch)
+        if moe_kw:  # pod_size, wire_dtype
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_kw[0]))
         p = load_layer(cfg, spec["params"], world)
         out[case] = run_layer(p, cfg, x, build_schedule(sched_spec), world)
+
+    # the two-level table's swaps: an intra-only re-plan, then both levels, refilled in place between calls
+    traffic = spec["hier_traffic"]
+    table = build_hierarchical(traffic, 2)
+    cfg = layer_cfg("hierarchical")
+    p = load_layer(cfg, spec["params"], world)
+    ptrs = (table.intra.perms.data_ptr(), table.inter.perms.data_ptr())
+    calls = [run_layer(p, cfg, x, table.row(0), world)]
+    i_d, e_d = hierarchical_decompose(traffic * 0.7, 2)
+    table.intra.fill_([plan_schedule(i_d, slack=1.5, quantum=8)])
+    calls.append(run_layer(p, cfg, x, table.row(0), world))
+    table.inter.fill_([plan_schedule(e_d, slack=1.5, quantum=8)])
+    calls.append(run_layer(p, cfg, x, table.row(0), world))
+    out["hier_swaps"] = {"calls": calls, "same_storage": (table.intra.perms.data_ptr(),
+                                                          table.inter.perms.data_ptr()) == ptrs}
 
     # the fault-injection wrapper: a dead link the plan avoids runs; one it routes is refused
     for case, (scenario, row_spec) in spec["faulty"].items():

@@ -470,10 +470,15 @@ def test_controller_config_checks_and_hierarchical_dispatch():
         with pytest.raises(ValueError):
             pc.ControllerConfig(**{"n_ranks": 8, "n_experts": 8, **bad})
     assert pc.ControllerConfig(8, 8, fallback_chain=["a2a", "dense"]).fallback_chain == ("a2a", "dense")
-    _, pcfg = _mixtral(2)
+    jcfg, pcfg = _mixtral(2)
     hier = dataclasses.replace(pcfg, moe=dataclasses.replace(pcfg.moe, dispatch="hierarchical"))
-    with pytest.raises(NotImplementedError, match="M10"):
-        pc.make_serving_controller(hier, n_ranks=8)
+    jhier = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, dispatch="hierarchical"))
+    port_rt, _ = pc.make_serving_controller(hier, n_ranks=8)
+    ref_rt, _ = jc.make_serving_controller(jhier, n_ranks=8)
+    assert type(port_rt).__name__ == type(ref_rt).__name__ == "HierarchicalRuntime"
+    assert port_rt.pod_size == ref_rt.pod_size == hier.moe.pod_size
+    assert port_rt.intra.cfg.fallback_chain == ref_rt.intra.cfg.fallback_chain == ()
+    assert port_rt.n_layers == ref_rt.n_layers == 2
     assert pc.make_serving_controller(pcfg, n_ranks=3) == (None, None)
     runtime = pc.ScheduleRuntime(pc.ControllerConfig(8, 8), 2)
     with pytest.raises(ValueError, match="no schedules yet"):

@@ -148,10 +148,13 @@ def _reg_plans():
 
 
 def test_fabric_names_are_the_jax_registry_but_the_unported_hierarchical():
-    assert set(pfab.fabric_names()) == set(jfab.fabric_names()) - set(pfab.UNPORTED_FABRICS)
+    """The JAX registry's names, the hierarchical fabric among them since its port."""
+    assert set(pfab.fabric_names()) == set(jfab.fabric_names())
     assert pfab.fabric_names() == tuple(sorted(pfab.fabric_names()))
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        pfab.get_fabric("hierarchical")
+    hier, jhier = pfab.get_fabric("hierarchical"), jfab.get_fabric("hierarchical")
+    assert type(hier).__name__ == type(jhier).__name__ == "HierarchicalFabric"
+    for attr in ("schedule_kind", "requires_envelope", "uses_mesh", "intra_backend", "inter_backend"):
+        assert getattr(hier, attr) == getattr(jhier, attr), attr
     for fn in (pfab.get_fabric, jfab.get_fabric):
         with pytest.raises(ValueError, match="unknown dispatch mode 'warp'.*scheduled"):
             fn("warp")

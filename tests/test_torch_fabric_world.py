@@ -20,10 +20,17 @@ in f32 (``layers.COMPUTE_DTYPE`` patched, as ``test_torch_moe.py`` does).
 * a BvN plan's multi-phase pairs through ``ppermute``, a re-planned row
   swapped into the same table between calls, the fault wrapper's pass
   and refusal, and the token slots each rank sent against
-  ``dispatch_tokens``.
+  ``dispatch_tokens``;
+* the ``hierarchical`` fabric on the two-level plan of the same traffic
+  (``tests/multidev_fabric.py``'s knobs) at pod sizes 2 and 4 in the
+  matrix above, under fp8 (one pod over every rank bit for bit, two pods
+  within JAX's 0.25 of the dense layer), its slots against its children's
+  accounting, and an intra-only then an inter re-plan refilled into the
+  same two-level table between calls.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -51,7 +58,7 @@ from repro_torch.parallel.sharding import spawn_world
 N = tw.N_RANKS
 VAL_TOL, GRAD_TOL = 1e-5, 2e-4
 FABRIC_CASES = ("dense", "a2a", "ppermute", "ppermute_bvn", "scheduled_static", "phase_pipelined",
-                "phase_pipelined_mono", "ragged_a2a")
+                "phase_pipelined_mono", "ragged_a2a", "hierarchical", "hierarchical_pod4")
 
 
 def _params(cfg, seed):
@@ -153,7 +160,13 @@ def world(tmp_path_factory):
             "phase_pipelined_mono": ("phase_pipelined", ("row", plan, None)),
             "ragged_a2a": ("ragged_a2a", ("row", plan, "auto")),
             "masked_phase_pipelined": ("phase_pipelined", ("row", masked, "auto")),
+            # the two-level fabric: two pods of two, one pod of four (every pair intra), each under fp8
+            "hierarchical": ("hierarchical", ("hrow", traffic, 2), {"pod_size": 2}),
+            "hierarchical_pod4": ("hierarchical", ("hrow", traffic, 4), {"pod_size": 4}),
+            "hierarchical_fp8": ("hierarchical", ("hrow", traffic, 2), {"pod_size": 2, "wire_dtype": "fp8"}),
+            "hierarchical_pod4_fp8": ("hierarchical", ("hrow", traffic, 4), {"pod_size": 4, "wire_dtype": "fp8"}),
         },
+        "hier_traffic": traffic,
         "faulty": {"faulty_avoided": (scenario, ("row", masked, "auto")), "faulty_routed": (scenario, ("row", plan, "auto"))},
         "swap": (plan, shift, envelope),
         "pack_params": mparams, "pack_x": xm,
@@ -162,7 +175,7 @@ def world(tmp_path_factory):
     }
     ranks = spawn_world(tw.fabric_world, N, args=(spec,), timeout_s=150)
     return {"spec": spec, "ranks": ranks, "cfg": cfg, "plan": plan, "bvn": bvn, "scenario": scenario,
-            "routed": routed[0], "mcfg": mcfg, "tight": tight, "shift": shift}
+            "routed": routed[0], "mcfg": mcfg, "tight": tight, "shift": shift, "traffic": traffic}
 
 
 @pytest.fixture(scope="module")
@@ -198,7 +211,8 @@ def test_fabric_matches_jax_dense(world, jax_side, case):
     ranks = [r[case] for r in world["ranks"]]
     _assert_layer(ranks, jax_side["dense"], case, ep=case != "dense")
     path = "dense_ep" if case == "dense" else {"scheduled_static": "ppermute", "phase_pipelined_mono":
-                                                "phase_pipelined", "ppermute_bvn": "ppermute"}.get(case, case)
+                                                "phase_pipelined", "ppermute_bvn": "ppermute",
+                                                "hierarchical_pod4": "hierarchical"}.get(case, case)
     assert all(r["paths"] == {path: 1} for r in ranks), [r["paths"] for r in ranks]
 
 
@@ -293,3 +307,49 @@ def test_a_rank_holding_every_expert_is_refused(world):
     for me, rank in enumerate(world["ranks"]):
         assert rank["all_experts"] is not None, f"rank {me} ran a module holding every expert"
         assert f"EP rank {me} of {N} runs" in rank["all_experts"]
+
+
+# ------------------------------------------------------------ the two-level fabric
+def test_hierarchical_under_fp8_is_bit_exact_inside_a_pod_and_close_across(world, jax_side):
+    """``tests/multidev_fabric.py``'s wire seam: one pod over every rank
+    leaves the fp8 wire a bit-exact no-op; two pods quantize the inter
+    slots, within JAX's 0.25 of the dense layer, the routing unchanged."""
+    ref = jax_side["dense"]
+    for r, rank in enumerate(world["ranks"]):
+        for key in ("y", "dx", "router", "w_gate", "w_up", "w_down", "routing", "dropped"):
+            np.testing.assert_array_equal(rank["hierarchical_pod4_fp8"][key], rank["hierarchical_pod4"][key],
+                                          err_msg=f"rank {r} {key}")
+        q = rank["hierarchical_fp8"]
+        np.testing.assert_allclose(q["y"], ref["y"], atol=0.25, err_msg=f"rank {r}")
+        assert np.abs(q["y"] - rank["hierarchical"]["y"]).max() > 0.0, "the inter slots were not quantized"
+        np.testing.assert_array_equal(q["routing"].sum(0), ref["routing"].sum(0))
+        assert float(q["dropped"].sum()) == 0.0
+
+
+def test_hierarchical_slots_sent_match_its_accounting(world):
+    """Each rank's dispatch-leg slots: the intra phases on the dense
+    per-phase emulation (``phase_pipelined``'s padded count), the inter
+    phases exactly their live envelope slots (``ragged_a2a``'s)."""
+    e_local = 2
+    for case, pod in (("hierarchical", 2), ("hierarchical_pod4", 4)):
+        row = tw.build_hierarchical(world["traffic"], pod).row(0)
+        env_i = e_local * np.asarray(row.intra.envelope_slots(e_local))
+        env_e = e_local * np.asarray(row.inter.envelope_slots(e_local))
+        on_e = (np.arange(row.inter.k_max) < int(row.inter.n_phases))[:, None] & row.inter.valid.numpy()
+        want = (get_fabric("phase_pipelined").dispatch_tokens_padded(n=N, envelope=env_i)
+                + get_fabric("ragged_a2a").dispatch_tokens(n=N, schedule=types.SimpleNamespace(valid=on_e),
+                                                           envelope=env_e))
+        got = np.mean([r[case]["slots"] for r in world["ranks"]])
+        assert got == want, (case, got, want)
+        split = get_fabric("hierarchical").dispatch_tokens_split(n=N, schedule=row)
+        assert set(split) == {"intra", "inter"}
+
+
+def test_hierarchical_table_swaps_run_without_a_rebuild(world, jax_side):
+    """An intra-only re-plan, then an inter one, refilled into the same
+    two-level table between calls: every call equals the dense layer."""
+    for r, rank in enumerate(world["ranks"]):
+        assert rank["hier_swaps"]["same_storage"], r
+    for k in range(3):
+        _assert_layer([rank["hier_swaps"]["calls"][k] for rank in world["ranks"]], jax_side["dense"],
+                      f"hierarchical swap {k}")

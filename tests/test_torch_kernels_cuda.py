@@ -862,6 +862,56 @@ def test_selective_scan_autograd_runs_k6_and_k6b_on_card(cuda_device):
         selective_scan(*leaves, h_out=torch.empty_like(args[6]))
 
 
+K6B_CLUSTER_CHANNELS = 512  # channels a K6b cluster sums dB/dC over (csrc/mamba_scan_bwd.cu: 8 blocks of 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", ["under one interval", "ragged", "several intervals"])
+@pytest.mark.parametrize("di,ds,x_dtype", [(100, 5, torch.bfloat16), (600, 16, torch.float32), (1100, 1, torch.bfloat16)])
+@pytest.mark.parametrize("given", ["neither", "h0", "dh_final", "both"])
+def test_k6b_across_its_interval_block_and_cluster_edges(cuda_device, steps, di, ds, x_dtype, given):
+    """K6b from K6's checkpoints at S under one checkpoint interval, S not a multiple of it and S over
+    several; di a ragged block of 64 channels (100), past one cluster of 512 (600: a second cluster
+    mostly of blocks past di) and ragged in both (1100); ds 1, 5 and 16; bf16 and f32 x; h0 and dh_final
+    each None and given; two runs give the same bits."""
+    ck = k6_ops.ckpt_steps()
+    s = {"under one interval": ck - 3, "ragged": ck + 5, "several intervals": 3 * ck + 1}[steps]
+    rng = np.random.default_rng(300 + s + di + ds)
+    args, dy, dh = _k6b_case(rng, 2, s, di, ds, x_dtype, cuda_device, True)
+    h0 = args[6] if given in ("h0", "both") else None
+    dh = dh if given in ("dh_final", "both") else None
+    args = (*args[:6], h0)
+    assert -(-di // 64) != -(-di // K6B_CLUSTER_CHANNELS) * 8  # some blocks lie past di
+    _, _, hck = k6_ops._launch(*args, checkpoints=True)
+    first = selective_scan_bwd(*args[:6], dy, h0, dh, checkpoints=hck)
+    second = selective_scan_bwd(*args[:6], dy, h0, dh, checkpoints=hck)
+    _k6b_close(first, selective_scan_bwd_plain(*args[:6], dy, h0, dh))
+    for name, g1, g2 in zip(K6B_NAMES, first, second):
+        assert (g1 is None and g2 is None) or torch.equal(g1, g2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_selective_scan_autograd_at_the_checkpoint_interval(cuda_device, x_dtype):
+    """K6 -> K6b through autograd at S = 4 intervals + 3 with a carried state: the forward writes its
+    checkpoints every ckpt_steps() steps, and every gradient equals the plain backward's."""
+    ck = k6_ops.ckpt_steps()
+    rng = np.random.default_rng(330)
+    args, dy, dh = _k6b_case(rng, 3, 4 * ck + 3, 700, 16, x_dtype, cuda_device, True)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    bwd = selective_scan_bwd.launches
+    y, h = selective_scan(*leaves)
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    assert selective_scan_bwd.launches == bwd + 1
+    want = selective_scan_bwd_plain(*args[:6], dy, args[6], dh)
+    grads = [leaf.grad for leaf in leaves]
+    assert grads[0].dtype == x_dtype
+    if x_dtype == torch.bfloat16:  # dx leaves in x's dtype: one bf16 rounding (the existing autograd test's 2e-2)
+        torch.testing.assert_close(grads[0].float(), want[0].to(x_dtype).float(), rtol=2e-2, atol=2e-2)
+        grads[0] = want[0]
+    _k6b_close(grads, want)
+
+
 @pytest.mark.cuda
 def test_k6b_kernel_rejects_what_it_does_not_take(cuda_device):
     rng = np.random.default_rng(20)

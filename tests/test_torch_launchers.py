@@ -15,6 +15,10 @@ port's launcher does (JAX's own ``n`` is its mesh's model axis, which
 depends on this process's devices; the mesh is used for nothing else), so
 the fp8 codec quantizes the slots that cross ranks on both sides.
 
+``--dispatch hierarchical --pod-size``: the same, each launcher planning
+its two-level table (``build_hierarchical_table``) over the virtual ranks;
+the tables equal JAX's leaf for leaf.
+
 ``--drift``: the serving launcher's default is JAX's, and ``main``
 hands it to the controller unless ``--drift none`` is passed.
 """
@@ -108,6 +112,56 @@ def test_train_launcher_wire_dtype_losses_equal_jax(tmp_path, monkeypatch, f32, 
     assert wire and {w for w, _ in wire} == {"fp8"}
     # the codec acts only where a table row marks slots that cross the virtual ranks
     assert (sum(n for _, n in wire) > 0) == (dispatch is not None)
+
+
+@pytest.mark.parametrize("pod_size", [2, 4])
+def test_train_launcher_pod_size_losses_equal_jax(tmp_path, monkeypatch, f32, pod_size):
+    """``--dispatch hierarchical --pod-size``: both launchers plan a two-level table of the same expected
+    traffic over the virtual ranks (JAX's ``build_hierarchical_table``, the port's), and the first losses
+    agree."""
+    argv = ["--smoke", "--dispatch", "hierarchical", "--pod-size", str(pod_size), "--steps", "3", "--seq", "32",
+            "--batch", "4"]
+    tokens, hbuild, tables = 4 * 32, jax_dryrun.build_hierarchical_table, {}
+
+    def jax_table(cfg, n, t_rank, n_layers, **kw):
+        tables["jax"] = hbuild(cfg, VIRTUAL_RANKS, tokens // VIRTUAL_RANKS, n_layers, **kw)
+        return tables["jax"]
+
+    monkeypatch.setattr(jax_dryrun, "build_hierarchical_table", jax_table)
+    jcfg, jres = _jax_launcher(monkeypatch, [*argv, "--ckpt", str(tmp_path / "jax")], tokens=tokens)
+    pcfg, pres, _ = _port_launcher(monkeypatch, [*argv, "--ckpt", str(tmp_path / "port")])
+    assert jcfg.moe.pod_size == pcfg.moe.pod_size == pod_size
+    assert jcfg.moe.dispatch == pcfg.moe.dispatch == "hierarchical"
+    ptab, jtab = pres["table"], tables["jax"]
+    assert ptab.pod_size == jtab.pod_size == pod_size
+    for level in ("intra", "inter"):
+        for name in ("perms", "caps", "valid", "offsets", "n_phases"):
+            np.testing.assert_array_equal(getattr(getattr(ptab, level), name).numpy(),
+                                          np.asarray(getattr(getattr(jtab, level), name)), err_msg=f"{level} {name}")
+    np.testing.assert_allclose([h["loss"] for h in pres["history"]], [h["loss"] for h in jres["history"]],
+                               rtol=0, atol=1e-4)
+    assert pres["final_step"] == jres["final_step"] == 3 and pres["failures"] == jres["failures"] == 0
+
+
+@pytest.mark.parametrize("plan", ["literal", "lossless", "v2"])
+def test_build_hierarchical_table_equals_jax(plan):
+    from repro.configs import get_config as jax_get_config
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import build_hierarchical_table
+
+    got = build_hierarchical_table(get_config("mixtral-8x7b"), 8, 512, 4, plan=plan)
+    want = jax_dryrun.build_hierarchical_table(jax_get_config("mixtral-8x7b"), 8, 512, 4, plan=plan)
+    assert got.pod_size == want.pod_size == 2 and got.num_layers == 4
+    for level in ("intra", "inter"):
+        for name in ("perms", "caps", "valid", "offsets", "n_phases"):
+            np.testing.assert_array_equal(getattr(getattr(got, level), name).numpy(),
+                                          np.asarray(getattr(getattr(want, level), name)), err_msg=f"{level} {name}")
+        assert getattr(got, level).envelope == tuple(getattr(want, level).envelope)
+    for fn, cfg in ((build_hierarchical_table, get_config("mixtral-8x7b")),
+                    (jax_dryrun.build_hierarchical_table, jax_get_config("mixtral-8x7b"))):
+        with pytest.raises(ValueError, match="no 'bvn' plan preset"):
+            fn(cfg, 8, 512, 4, plan="bvn")
 
 
 def test_train_launcher_wire_dtype_choices_are_jax():

@@ -423,10 +423,27 @@ class TestRegimeLibraryAPI:
             peng.load_regimes([np.ones((4, 4))])
 
 
-def test_hierarchical_dispatch_names_m10():
-    _, _, pcfg, model = _models(dispatch="hierarchical")
-    with pytest.raises(NotImplementedError, match="M10"):
-        ServeEngine(pcfg, model, decode_slots=2, max_len=16, buckets=(4,), device="cpu")
+def test_hierarchical_dispatch_names_m10(f32):
+    """``dispatch="hierarchical"``: the engine's two-level controller (both
+    levels stepped from the decode step's routing, as JAX's) and the tokens
+    of every request equal JAX's engine's."""
+    jeng, peng = _engines(dispatch="hierarchical", **PARITY_KW)
+    assert type(peng._ctrl).__name__ == type(jeng._ctrl).__name__ == "HierarchicalDeviceController"
+    assert type(peng._runtime).__name__ == "HierarchicalRuntime" and peng.regime_capacity == 0
+    jreqs, preqs = _specs(np.random.default_rng(0), 256, PARITY_SPECS)
+    jout, pout = jeng.run(jreqs), peng.run(preqs)
+    assert pout["serve"]["requests"] == jout["serve"]["requests"]
+    assert [r.tokens for r in preqs] == [r.tokens for r in jreqs]
+    for key in ("device_replans", "steps", "regime_warm_swaps", "host_replans"):
+        assert pout["controller"][key] == jout["controller"][key], key
+    for level in ("intra", "inter"):
+        jst, pst = getattr(jeng._state, level), getattr(peng._state, level)
+        for name, leaf in pst.leaves().items():
+            j = np.asarray(getattr(jst, name))
+            if leaf.dtype.is_floating_point:
+                np.testing.assert_allclose(leaf.numpy(), j, rtol=1e-6, atol=0, err_msg=f"{level} {name}")
+            else:
+                np.testing.assert_array_equal(leaf.numpy(), j, err_msg=f"{level} {name}")
 
 
 # ------------------------------------------------- the thirteenth slice's configs

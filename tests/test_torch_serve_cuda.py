@@ -150,3 +150,48 @@ def test_warm_swap_fires_on_the_card_after_load_regimes(cuda_device):
     assert m["controller"]["regime_library_size"] == 1 and m["controller"]["regime_warm_swaps"] >= 1
     assert [e["kind"] for e in eng.replan_log].count("warm") == m["controller"]["regime_warm_swaps"]
     assert m["compile"]["decode_executables"] == 1
+
+
+@pytest.mark.cuda
+def test_hierarchical_engine_on_the_card_replay_eager_and_a_cpu_twin(cuda_device):
+    """``dispatch="hierarchical"``: the two-level controller's step inside the
+    decode graph equals the eager step on copies bit for bit at every step, a
+    CPU twin of both levels fed the routing the engine copied out ends in the
+    card's state, and the graph and eager runs give the same tokens."""
+    from repro_torch.core import DeviceController, HierarchicalDeviceController
+
+    cfg = dataclasses.replace(_mixtral(), moe=dataclasses.replace(_mixtral().moe, dispatch="hierarchical"))
+    eng = ServeEngine(cfg, device=cuda_device, **ENGINE_KW)
+    ctrl = eng._ctrl
+    assert isinstance(ctrl, HierarchicalDeviceController)
+    twin = HierarchicalDeviceController(DeviceController(ctrl.intra.cfg, device="cpu"),
+                                        DeviceController(ctrl.inter.cfg, device="cpu"), ctrl.pod_size)
+    twin_state, real, fired = eng._state.clone("cpu"), eng._decode_once, []
+
+    def checked():
+        ref = eng.step_on_copies()
+        nxt = real()
+        np.testing.assert_array_equal(eng.last_outputs, ref["outputs"])
+        for name, leaf in eng._state.leaves().items():
+            assert torch.equal(leaf, ref["state"].leaves()[name]), name
+        out = eng.split_outputs(eng.last_outputs)
+        twin.step(twin_state, out["routing"], out["dropped"])
+        fired.append(out["fire"])
+        return nxt
+
+    eng._decode_once = checked
+    reqs = _requests(0, SPECS)
+    out = eng.run(reqs)
+    assert out["serve"]["requests"]["completed"] == len(SPECS) and eng.graph_replays == out["serve"]["decode_steps"]
+    for name, leaf in eng._state.leaves().items():
+        mine, theirs = leaf.cpu(), twin_state.leaves()[name]
+        if mine.is_floating_point():
+            torch.testing.assert_close(mine, theirs, rtol=1e-6, atol=0, msg=name)
+        else:
+            assert torch.equal(mine, theirs), name
+    assert any(fired) and out["controller"]["device_replans"] >= 1
+    eager = ServeEngine(cfg, device=cuda_device, **ENGINE_KW)
+    eager._use_graph = False
+    ereqs = _requests(0, SPECS)
+    eager.run(ereqs)
+    assert [r.tokens for r in ereqs] == [r.tokens for r in reqs]
