@@ -308,12 +308,34 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    in every layer of those steps), one prefill a bucket again with K1 and
    K4 held must give the served row, launches exact; decode ms a step and
    prefill ms a bucket printed (``hier_engine`` in the kernels line).
+15. training across ranks (``parallel.data_parallel``, the world path of
+   ``train_loop`` and ``CheckpointManager``): ``TW_RANKS`` ranks spawned on
+   the one card (gloo), laid out as (data, model) ``TW_LAYOUT``, train
+   full-width Mixtral-8x7B cut to 1 layer (f32 masters, bf16 compute, remat
+   per block, ``phase_pipelined`` under ``plan_table``'s lossless table over
+   the model group; ``TW_BATCH`` x ``TW_SEQ`` tokens, each data group its
+   rows) for ``TW_STEPS`` AdamW steps through ``train_loop``: the loss finite,
+   falling and the same on every rank; a second run with a failure on rank
+   ``TW_FAULT_RANK`` alone at step ``TW_FAULT_AT`` (first attempt), which
+   every rank rolls back to the step-``TW_CKPT_EVERY`` checkpoint, ending at
+   the clean run's final loss within ``TW_LOSS_RTOL`` (bit-equality of every
+   step printed); then the latest checkpoint restored onto ``TW_LAYOUT_B``
+   (``regroup``) for ``TW_MORE_STEPS`` more steps, losses finite.  Every K1
+   launch and K2/K3 launch pair of each rank's first step is held against
+   the plain versions (``_hold_in_turns``; the outputs kept on the host, each
+   step's bf16 weight copies once), and K1/K2/K3 launch 2/1/1 times for
+   every expert block of every executed step (the table's live phase slots
+   and the local block); ``train_world`` in the kernels line.  Checkpoints
+   (20.6 GB: the whole model's f32 parameters and moments) go to
+   ``/dev/shm``, at most ``TW_KEEP`` on disk, removed at the end.  It prints
+   per-rank peak memory, ms a step (gloo through host memory: not a
+   fabric's time) and each save's and restore's seconds.
 
 It prints K4's extra numbers and K2's/K3's per-launch times (with the
 dgrad launch's library time and bound) one a line beside the card's name
 and power limit, phase 12's numbers a config a line, a ``kernels`` JSON
 line (nine entries, K5b's, K6's and K6b's ``replaces`` naming the scans
-the JAX model runs), then,
+the JAX model runs; phase 15's numbers under K1's ``train_world``), then,
 last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before that line.
 """
@@ -324,6 +346,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -477,6 +500,18 @@ EP_SERVE = dict(batch=4, prompt_len=256, new_tokens=8, rounds=2)
 EP_SERVE_LAYERS, EP_TIMEOUT_S = 2, 480
 EP_LABEL = "4 ranks sharing one H100 over gloo, staged through host memory: not a fabric's time"
 
+# phase 15: training across TW_RANKS ranks sharing the card over gloo: 1-layer full-width Mixtral-8x7B laid out as
+# (data 2, model 2) under phase_pipelined with the launcher's lossless table, TW_BATCH rows of TW_SEQ tokens (2 rows
+# a data group), TW_STEPS AdamW steps; a fault on rank TW_FAULT_RANK at TW_FAULT_AT (first attempt) rolled back to
+# the checkpoint of step TW_CKPT_EVERY; then the latest checkpoint restored onto TW_LAYOUT_B for TW_MORE_STEPS steps.
+# f32 master, grad and two moments are 16 B a parameter: 1.009 B parameters a rank (4 experts of 8 over 2 model
+# ranks and the replicated rest) hold 16.1 GB, so the 4 ranks 64.6 GB; a checkpoint is the whole model's 1.713 B
+# parameters and moments, 20.6 GB, in /dev/shm, at most TW_KEEP of them
+TW_RANKS, TW_LAYOUT, TW_LAYOUT_B, TW_BATCH, TW_SEQ, TW_SEED = 4, (2, 2), (1, 4), 4, 256, 5
+TW_STEPS, TW_MORE_STEPS, TW_CKPT_EVERY, TW_KEEP, TW_FAULT_RANK, TW_FAULT_AT = 6, 2, 3, 2, 1, 4
+TW_LOSS_RTOL, TW_TIMEOUT_S = 1e-5, 900  # the fault run's final loss against the clean run's: JAX's bound
+TW_LABEL = "4 ranks sharing one H100 over gloo, gradients staged through host memory: not a fabric's time"
+
 # the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
 ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
 
@@ -591,9 +626,11 @@ def _hold_in_turns(world, records: list, what: str) -> dict:
             with torch.no_grad():
                 for i, (kind, args, out) in enumerate(records):
                     tag = f"{what}, launch {i}"
+                    dev = args[0].device  # a recorder may keep the outputs on the host
                     if kind == "k1":
-                        held["k1"].append(_bf16_err(out, k1.moe_gemm_plain(*args), f"K1 vs plain, {tag}"))
+                        held["k1"].append(_bf16_err(out.to(dev), k1.moe_gemm_plain(*args), f"K1 vs plain, {tag}"))
                         continue
+                    out = tuple(t.to(dev) for t in out)
                     held["k2"].append(_bf16_err(out[0], k1.moe_gemm_dgrad_plain(*args), f"K2 vs plain, {tag}"))
                     held["k3"].append(max(_wgrad_err(a, b, f"K3 {n} vs plain, {tag}") for a, b, n in
                                           zip(out[1:], k1.moe_gemm_wgrad_plain(*args), ("dwg", "dwu", "dwd"))))
@@ -1061,6 +1098,294 @@ def ep_phase(dev, card: str, counted) -> tuple:
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s wall, the world {t_world:.1f} s ({card})")
 
     return ep_layer_launches, ep_serve_launches, ep_rows, ep_held, ep_serve
+
+
+# ---------------------------------------------------------------- phase 15 (training across ranks)
+def _tw_recorder(records: list, on: list):
+    """K1's and K2/K3's launch functions that record each launch while
+    ``on[0]`` is set, for ``_hold_in_turns``, with little device memory:
+    the small inputs stay on the card, the outputs and the bf16 weight
+    copies go to the host, each weight once (every launch of a step casts
+    the same f32 masters: checked), and ``restore()`` moves the weights
+    back before the hold."""
+    import torch
+    from repro_torch.kernels.moe_gemm import ops as k1
+
+    real_fwd, real_bwd = k1._forward, k1._backward
+    weights = {}  # "w_gate", "w_up", "w_down" -> [host copy, the records' placeholder]
+
+    def keep(args, first: int) -> tuple:
+        """``args`` with its three weights (from position ``first``) as placeholders."""
+        out = list(args)
+        for name, i in zip(("w_gate", "w_up", "w_down"), range(first, first + 3)):
+            host = args[i].cpu()
+            if name not in weights:
+                weights[name] = [host, [None]]
+            elif not torch.equal(weights[name][0], host):
+                raise AssertionError(f"phase 15: two launches of the recorded step saw different {name}")
+            out[i] = weights[name][1]
+        return tuple(out)
+
+    def rec_fwd(*args):  # (x, w_gate, w_up, w_down, row_valid)
+        out = real_fwd(*args)
+        if on[0]:
+            records.append(("k1", keep(args, 1), out.cpu()))
+        return out
+
+    def rec_bwd(*args):  # (go, x, w_gate, w_up, w_down, row_valid)
+        out = real_bwd(*args)
+        if on[0]:
+            records.append(("k2k3", keep(args, 2), tuple(t.cpu() for t in out)))
+        return out
+
+    def restore(dev):
+        """The records with their weights on ``dev`` again."""
+        for host, slot in weights.values():
+            slot[0] = host.to(dev)
+        records[:] = [(kind, tuple(a[0] if isinstance(a, list) else a for a in args), out)
+                      for kind, args, out in records]
+        weights.clear()
+
+    return rec_fwd, rec_bwd, restore
+
+
+def _tw_run(world, cfg, ckpt_dir: str, steps: int, *, keep: int, ckpt_every: int, hook=None, hold: str | None = None) -> dict:
+    """One ``train_loop`` on a fresh seeded model holding this rank's
+    experts, under ``world``: its result, K1/K2/K3 launches, peak memory,
+    each save's and restore's times and, with ``hold``, K1 and K2/K3 held
+    against their plain versions on every launch of the first step."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.moe_gemm import ops as k1
+    from repro_torch.launch.train import data_config, plan_table
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import ep_world
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    dev = world.device
+    model = Model(cfg, device=dev, param_dtype=torch.float32, requires_grad=True, seed=TW_SEED,
+                  expert_shard=(world.me, world.n_model))
+    table = plan_table(cfg, batch=TW_BATCH, seq=TW_SEQ, virtual_ranks=world.n_model, n_data=world.n_data, device=dev)
+    e_local = cfg.moe.n_experts // world.n_model
+    live = sum(1 for v in table.envelope_slots(e_local) if v)
+    manager = CheckpointManager(ckpt_dir, keep=keep, world=world, sharded=model.expert_names())
+    records, on = [], [False]
+    rec_fwd, rec_bwd, restore_records = _tw_recorder(records, on)
+
+    def step_hook(step):
+        on[0] = hold is not None and step == 0
+        if hook is not None:
+            hook(step)
+
+    counters = {"k1": k1.moe_gemm, "k2": k1.moe_gemm_dgrad, "k3": k1.moe_gemm_wgrad}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop_cfg = TrainLoopConfig(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, keep=keep, peak_lr=PEAK_LR,
+                               warmup=WARMUP, log_every=1)
+    t0 = time.perf_counter()
+    with ep_world(world), mock.patch.object(k1, "_forward", rec_fwd), mock.patch.object(k1, "_backward", rec_bwd):
+        res = train_loop(model, data_config(cfg, seq=TW_SEQ, batch=TW_BATCH), loop_cfg, schedule=table,
+                         failure_hook=step_hook, manager=manager)
+    torch.cuda.synchronize()
+    out = {"res": res, "wall_s": time.perf_counter() - t0, "launches": {k: fn.launches for k, fn in counters.items()},
+           "live": live, "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "saves": manager.saves,
+           "restores": manager.restores, "params_b": sum(p.numel() for p in model.parameters()) / 1e9}
+    del model, manager
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hold is not None:
+        restore_records(dev)
+        out["held"] = _hold_in_turns(world, records, hold)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_rank(world, ckpt_root: str) -> dict:
+    """Phase 15 on one of the ranks ``spawn_world`` starts: the clean run
+    (K1/K2/K3 held in its first step), the run with a fault on rank
+    ``TW_FAULT_RANK``, and the elastic restart of its checkpoint onto
+    ``TW_LAYOUT_B``."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.sharding import regroup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # rank 0 logs the loop's steps, failures and restores as they happen
+    logging.basicConfig(level=logging.INFO if world.rank == 0 else logging.WARNING,
+                        format="phase 15 rank 0: %(message)s")
+    base = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(base, n_layers=1, moe=dataclasses.replace(base.moe, dispatch="phase_pipelined"))
+    clean_dir, fault_dir = os.path.join(ckpt_root, "clean"), os.path.join(ckpt_root, "fault")
+    # the clean run keeps only its final checkpoint, removed before the fault run writes its own
+    clean = _tw_run(world, cfg, clean_dir, TW_STEPS, keep=1, ckpt_every=TW_STEPS,
+                    hold=f"phase 15 rank {world.rank} step 0")
+    dist.barrier()
+    if world.rank == 0:
+        shutil.rmtree(clean_dir, ignore_errors=True)
+    fired = []
+
+    def boom(step):
+        if world.rank == TW_FAULT_RANK and step == TW_FAULT_AT and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+
+    fault = _tw_run(world, cfg, fault_dir, TW_STEPS, keep=TW_KEEP, ckpt_every=TW_CKPT_EVERY, hook=boom)
+    fault["fired"] = bool(fired)
+    # the restart reads the latest checkpoint: the earlier one goes first, so at most TW_KEEP are ever on disk
+    dist.barrier()
+    if world.rank == 0:
+        steps = sorted(int(n.split("_")[1]) for n in os.listdir(fault_dir) if n.startswith("step_"))
+        for s_ in steps[:-1]:
+            shutil.rmtree(os.path.join(fault_dir, f"step_{s_:08d}"), ignore_errors=True)
+    dist.barrier()
+    other = regroup(world, TW_LAYOUT_B)
+    elastic = _tw_run(other, cfg, fault_dir, TW_STEPS + TW_MORE_STEPS, keep=TW_KEEP, ckpt_every=TW_CKPT_EVERY)
+    elastic["layout"] = (other.n_data, other.n_model, other.data_index, other.me)
+    return {"clean": clean, "fault": fault, "elastic": elastic}
+
+
+def train_world_phase(card: str, counted) -> tuple:
+    """Phase 15 on this process's side: spawn the ranks (``train_rank``),
+    hold what they return, print the phase's lines; returns (launches keyed
+    like ``counted``, the phase's numbers)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.parallel.sharding import spawn_world, world_backend
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shm = Path("/dev/shm")
+    in_memory = shm.is_dir() and os.access(shm, os.W_OK)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_world_", dir=str(shm) if in_memory else None)
+    ckpt_bytes = 3 * 4 * 1.713e9  # f32 parameters and two moments of the whole 1-layer model
+    need = TW_KEEP * ckpt_bytes * 1.1
+    free = shutil.disk_usage(ckpt_root).free
+    if in_memory:
+        meminfo = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+        free = min(free, int(meminfo["MemAvailable"].split()[0]) * 1024)
+    backend = world_backend(torch.device("cuda"), TW_RANKS, torch.cuda.device_count())
+    card_free, card_total = torch.cuda.mem_get_info()
+    print(f"phase 15: {TW_RANKS} ranks on {torch.cuda.device_count()} card(s) as (data, model) {TW_LAYOUT}, backend "
+          f"{backend}; checkpoints in {ckpt_root} ({'memory' if in_memory else 'disk'}): {free / 1e9:.1f} GB free, "
+          f"need {need / 1e9:.1f} GB ({TW_KEEP} of {ckpt_bytes / 1e9:.1f} GB, + 10%); the card {card_free / 2**30:.2f} of "
+          f"{card_total / 2**30:.2f} GiB free, this process holding {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) ({card})")
+    try:
+        if free < need:
+            fail(f"phase 15: {free / 1e9:.1f} GB free for checkpoints, {need / 1e9:.1f} GB needed")
+        # 4 ranks of ~19 GB share the card: expandable segments keep each allocator's reserve near its use
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = spawn_world(train_rank, TW_RANKS, device="cuda", layout=TW_LAYOUT, args=(ckpt_root,),
+                                timeout_s=TW_TIMEOUT_S, init_timeout_s=300)
+        except Exception as e:  # a rank's failure (its traceback), a dead rank or the timeout
+            fail(f"phase 15: {e}")
+        finally:
+            if alloc_conf is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    t_world = time.perf_counter() - t_phase
+    launches = dict.fromkeys(counted, 0)
+    names = {"k1": "moe_gemm_grouped", "k2": "moe_gemm_grouped_dgrad", "k3": "moe_gemm_grouped_wgrad"}
+
+    def losses(run):
+        return [h["loss"] for h in run["res"]["history"]]
+
+    c0 = ranks[0]["clean"]
+    for r, rank in enumerate(ranks):
+        clean, fault, el = rank["clean"], rank["fault"], rank["elastic"]
+        lc = losses(clean)
+        if clean["res"]["final_step"] != TW_STEPS or not np.all(np.isfinite(lc)) or not lc[-1] < lc[0]:
+            fail(f"phase 15 rank {r}: the clean run's losses {lc} (final step {clean['res']['final_step']}): finite "
+                 f"and falling expected")
+        if lc != losses(c0):
+            fail(f"phase 15 rank {r}: the clean run's losses differ from rank 0's (the global batch's loss on every rank)")
+        if fault["fired"] != (r == TW_FAULT_RANK) or fault["res"]["failures"] != 1 or fault["res"]["final_step"] != TW_STEPS:
+            fail(f"phase 15 rank {r}: the fault run fired {fault['fired']}, failures {fault['res']['failures']}, final "
+                 f"step {fault['res']['final_step']}: one failure on every rank, injected on rank {TW_FAULT_RANK} only")
+        if [h["step"] for h in fault["res"]["history"]] != list(range(TW_STEPS)):
+            fail(f"phase 15 rank {r}: the fault run's history steps {[h['step'] for h in fault['res']['history']]}")
+        if not math.isclose(fault["res"]["final_loss"], clean["res"]["final_loss"], rel_tol=TW_LOSS_RTOL):
+            fail(f"phase 15 rank {r}: the fault run's final loss {fault['res']['final_loss']} against the clean run's "
+                 f"{clean['res']['final_loss']} (rtol {TW_LOSS_RTOL})")
+        le = losses(el)
+        if el["res"]["final_step"] != TW_STEPS + TW_MORE_STEPS or not np.all(np.isfinite(le)) or \
+                [h["step"] for h in el["res"]["history"]] != list(range(TW_STEPS, TW_STEPS + TW_MORE_STEPS)):
+            fail(f"phase 15 rank {r}: the restart on {TW_LAYOUT_B}: history {el['res']['history']}")
+        # K1 twice a step (remat per block recomputes the forward), K2/K3 once: each (live phase slots + the local
+        # block) launches a layer call
+        executed = {"clean": TW_STEPS, "fault": TW_STEPS + TW_FAULT_AT - TW_CKPT_EVERY, "elastic": TW_MORE_STEPS}
+        for run_name, n_steps in executed.items():
+            run = rank[run_name]
+            per_call = run["live"] + 1
+            want = {"k1": 2 * per_call * n_steps, "k2": per_call * n_steps, "k3": per_call * n_steps}
+            if run["launches"] != want:
+                fail(f"phase 15 rank {r} {run_name}: K1/K2/K3 launched {run['launches']}, expected {want} "
+                     f"({n_steps} steps, {per_call} launches a layer call)")
+            for k, v in run["launches"].items():
+                launches[names[k]] += v
+        held_n = {k: v["n"] for k, v in clean["held"].items()}
+        per_call = clean["live"] + 1
+        if held_n != {"k1": 2 * per_call, "k2": per_call, "k3": per_call}:
+            fail(f"phase 15 rank {r}: K1/K2/K3 held {held_n} times in the first step, expected every launch of it")
+    held = {k: max(rank["clean"]["held"][k]["max"] for rank in ranks) for k in ("k1", "k2", "k3")}
+    lc, lf = losses(c0), losses(ranks[0]["fault"])
+    bit_equal = all(losses(rank["fault"]) == losses(rank["clean"]) for rank in ranks)
+
+    def step_ms(run):
+        ms = sorted(h["dt_s"] * 1e3 for h in run["res"]["history"][1:])
+        return ms[len(ms) // 2]
+
+    numbers = {
+        "label": TW_LABEL, "layout": list(TW_LAYOUT), "layout_b": list(TW_LAYOUT_B), "batch": TW_BATCH, "seq": TW_SEQ,
+        "params_b_per_rank": [rank["clean"]["params_b"] for rank in ranks],
+        "params_b_per_rank_b": [rank["elastic"]["params_b"] for rank in ranks],
+        "clean_losses": lc, "fault_losses": lf, "elastic_losses": losses(ranks[0]["elastic"]),
+        "fault_bit_equal": bit_equal,
+        "peak_gb": {run: [rank[run]["peak_gb"] for rank in ranks] for run in ("clean", "fault", "elastic")},
+        "step_ms": {run: max(step_ms(rank[run]) for rank in ranks) for run in ("clean", "fault", "elastic")},
+        "saves": [{k: v for k, v in rec.items()} for run in ("clean", "fault", "elastic")
+                  for rec in ranks[0][run]["saves"]],
+        "restores": {run: [rank[run]["restores"] for rank in ranks] for run in ("fault", "elastic")},
+        "held": held, "world_s": t_world,
+    }
+    print(f"phase 15: 1-layer full-width Mixtral-8x7B trained across {TW_RANKS} ranks (data, model) {TW_LAYOUT}, "
+          f"phase_pipelined, {TW_BATCH} x {TW_SEQ} tokens, {numbers['params_b_per_rank'][0]:.3f} B parameters a rank: "
+          f"clean losses {[round(v, 4) for v in lc]} ({card})")
+    print(f"phase 15: a fault on rank {TW_FAULT_RANK} at step {TW_FAULT_AT} rolled every rank back to step "
+          f"{TW_CKPT_EVERY}: final loss {lf[-1]:.6f} against the clean run's {lc[-1]:.6f} (rtol {TW_LOSS_RTOL}); every "
+          f"step's loss equal to the clean run's bit for bit on every rank: {bit_equal} ({card})")
+    print(f"phase 15: the step-{TW_STEPS} checkpoint restored onto (data, model) {TW_LAYOUT_B} "
+          f"({numbers['params_b_per_rank_b'][0]:.3f} B parameters a rank): losses "
+          f"{[round(v, 4) for v in numbers['elastic_losses']]} ({card})")
+    print(f"phase 15: every K1 launch and K2/K3 launch pair of each rank's first step held against the plain versions: "
+          f"K1 max err {held['k1']:.4g}, K2 max err {held['k2']:.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|), K3 rel L2 "
+          f"{held['k3']:.3g} (tol {WGRAD_REL_L2}); launches {launches} ({card})")
+    for run in ("clean", "fault", "elastic"):
+        print(f"phase 15 {run}: peak memory a rank {[round(v, 2) for v in numbers['peak_gb'][run]]} GB "
+              f"(torch.cuda.max_memory_allocated); {numbers['step_ms'][run]:.1f} ms a step (the slowest rank's median "
+              f"after step 0) | {TW_LABEL} ({card})")
+    for rec in numbers["saves"]:
+        print(f"phase 15 checkpoint step {rec['step']} (rank 0): snapshot and gathers {rec['snapshot_s']:.1f} s "
+              f"blocking ({rec['nbytes'] / 1e9:.2f} GB to the host), background write {rec['write_s']:.1f} s ({card})")
+    for run, recs in numbers["restores"].items():
+        print(f"phase 15 {run}: restores a rank (step, s) {[[(r_['step'], round(r_['s'], 1)) for r_ in rr] for rr in recs]} "
+              f"({card})")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s wall, the world {t_world:.1f} s ({card})")
+    return launches, numbers
 
 
 def main() -> None:
@@ -3759,6 +4084,9 @@ def main() -> None:
     # built above, so the ranks only load them
     ep_layer_launches, ep_serve_launches, ep_rows, ep_held, ep_serve = ep_phase(dev, card, COUNTED)
 
+    # 15. training across TW_RANKS ranks sharing the card: clean, a fault on one rank, an elastic restart
+    tw_launches, tw_numbers = train_world_phase(card, COUNTED)
+
     # the kernels line, then the result line
     path_launches = {
         name: {"serve": launches[name], "serve_drift": drift_launches[name], "serve_engine": engine_launches[name],
@@ -3768,7 +4096,8 @@ def main() -> None:
                "rwkv_train": rwkv_train_launches[name], "slice12": slice12_launches[name],
                "slice12_engine": engine12_launches[name], "slice12_long_500k": long12_launches[name],
                "train13": train13_launches[name], "ep_layer": ep_layer_launches[name],
-               "ep_serve": ep_serve_launches[name], "hier_engine": hier_engine["launches"][name]}
+               "ep_serve": ep_serve_launches[name], "hier_engine": hier_engine["launches"][name],
+               "train_world": tw_launches[name]}
         for name in COUNTED
     }
     kernels = [
@@ -3781,6 +4110,7 @@ def main() -> None:
             shape=k1_rows["prefill"]["shape"], decode=k1_rows["decode"], knee=knee, wire_codecs=wire_out,
             ep={"label": EP_LABEL, "layer": ep_rows, "k1_held_max_err": ep_held["k1"], "k2_held_max_err": ep_held["k2"],
                 "k3_held_rel_l2": ep_held["k3"], "serve": ep_serve},
+            train_world=tw_numbers,
             **{arch: arch_rows[arch]["moe_gemm_grouped"] for arch in ARCHS}, **s12_k1,
         ),
         dict(

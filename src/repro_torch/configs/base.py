@@ -30,6 +30,9 @@ class MoECfg:
     # wire codec of the dispatched slots: "bf16" (identity), "fp8" or "int8" (parallel/fabric/codec.py)
     wire_dtype: str = "bf16"
     schedule_strategy: Literal["maxweight", "shift"] = "maxweight"
+    # JAX's 2D expert sharding (expert FFN width over 'data'): no effect on one device, as in JAX; refused under
+    # a world (models/moe.py)
+    expert_2d: bool = False
     # accepted so configs build as the JAX package's do; the port's expert
     # FFN always runs its grouped kernel on a CUDA tensor, whatever this says
     use_pallas: bool = False

@@ -33,6 +33,17 @@ ef8``, ``--wire-dtype fp8|int8`` and, with ``--dispatch hierarchical``,
 does, and logs every 10th step; a second run
 on the same ``--ckpt`` resumes from its latest checkpoint.
 ``plan_controller`` builds the device controller of the fused step.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) ``main`` trains across the ranks,
+as JAX's launcher does over its mesh: the world is laid out as
+``train_mesh_shape(n)`` (JAX's ``build_mesh``), each rank holds its model
+group slice of the experts, the table is planned over the model group at
+``t_rank = batch // n_data * seq // n_model`` tokens a rank, and
+``train_loop`` runs under the world (rank 0 logs)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --device cpu
+
 Counterpart of ``repro/launch/train.py``.
 """
 
@@ -56,6 +67,7 @@ from repro_torch.launch.dryrun import build_hierarchical_table, build_schedule, 
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.parallel.fabric import codec_names, consumes_table
+from repro_torch.parallel.sharding import close_world, ep_world, init_world, train_mesh_shape
 from repro_torch.train import TrainLoopConfig, make_train_step, train_loop
 
 __all__ = ["TrainResult", "data_config", "plan_table", "plan_controller", "train", "main"]
@@ -75,14 +87,16 @@ class TrainResult:
         return [self.tokens_per_step / (ms / 1e3) for ms in self.step_ms]
 
 
-def plan_table(cfg, *, batch: int, seq: int, virtual_ranks: int, device):
+def plan_table(cfg, *, batch: int, seq: int, virtual_ranks: int, device, n_data: int = 1):
     """The JAX launcher's lossless plan as a per-layer ``ScheduleTable``
     (a ``HierarchicalTable`` for ``dispatch="hierarchical"``, planned per
     level at ``cfg.moe.pod_size``), or None when the arch's dispatch
-    consumes no table rows."""
+    consumes no table rows.  Under a world ``virtual_ranks`` is the model
+    group and ``n_data`` the data groups: ``batch // n_data * seq //
+    virtual_ranks`` tokens a rank, as JAX's launcher."""
     if cfg.moe is None or not consumes_table(cfg.moe.dispatch):
         return None
-    t_rank = max(batch * seq // virtual_ranks, 1)
+    t_rank = max(batch // n_data * seq // virtual_ranks, 1)
     if cfg.moe.dispatch == "hierarchical":
         table = build_hierarchical_table(cfg, virtual_ranks, t_rank, cfg.n_moe_layers, plan="lossless",
                                          device=device)
@@ -163,7 +177,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compress", default=None, choices=[None, "ef8"])
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt"))
-    ap.add_argument("--virtual-ranks", type=int, default=8)
+    ap.add_argument("--virtual-ranks", type=int, default=8,
+                    help="EP ranks the table is planned over in one process (under torchrun: the model group)")
     ap.add_argument("--device", default="cuda", help="'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -175,19 +190,34 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, wire_dtype=args.wire_dtype))
     if cfg.moe is not None and args.pod_size:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, pod_size=args.pod_size))
-    model = Model(cfg, device=args.device, param_dtype=torch.float32, requires_grad=True, seed=0)
-    log.info("arch %s, %d layers, %.3f B params", cfg.name, cfg.n_layers,
-             sum(p.numel() for p in model.parameters()) / 1e9)
-    table = plan_table(cfg, batch=args.batch, seq=args.seq, virtual_ranks=args.virtual_ranks, device=model.device)
     loop_cfg = TrainLoopConfig(
         steps=args.steps, ckpt_dir=args.ckpt, ckpt_every=max(args.steps // 4, 10), microbatches=args.microbatches,
         grad_compress=args.grad_compress, log_every=10,
     )
     data_cfg = data_config(cfg, seq=args.seq, batch=args.batch)
-    res = train_loop(model, data_cfg, loop_cfg, schedule=table)
-    log.info("done: step %d loss %.4f (%d failures recovered)", res["final_step"], res["final_loss"], res["failures"])
-    return {**res, "table": table}
-
+    n_world = int(os.environ.get("WORLD_SIZE", "1"))
+    world = init_world(args.device, layout=train_mesh_shape(n_world)) if n_world > 1 else None
+    try:
+        if world is not None and world.rank:
+            logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs the run
+        if world is not None:
+            log.info("world of %d ranks as (data %d, model %d), backend %s", world.size, world.n_data, world.n_model,
+                     world.backend)
+        model = Model(cfg, device=args.device if world is None else world.device, param_dtype=torch.float32,
+                      requires_grad=True, seed=0, expert_shard=None if world is None else (world.me, world.n))
+        log.info("arch %s, %d layers, %.3f B params%s", cfg.name, cfg.n_layers,
+                 sum(p.numel() for p in model.parameters()) / 1e9, "" if world is None else " a rank")
+        n_model, n_data = (args.virtual_ranks, 1) if world is None else (world.n_model, world.n_data)
+        table = plan_table(cfg, batch=args.batch, seq=args.seq, virtual_ranks=n_model, n_data=n_data,
+                           device=model.device)
+        with ep_world(world):
+            res = train_loop(model, data_cfg, loop_cfg, schedule=table)
+        log.info("done: step %d loss %.4f (%d failures recovered)", res["final_step"], res["final_loss"],
+                 res["failures"])
+        return {**res, "table": table}
+    finally:
+        if world is not None:
+            close_world()
 
 if __name__ == "__main__":
     main()

@@ -110,6 +110,16 @@ class Model(nn.Module):
         tensor).  AdamW decays by this rank, as JAX does."""
         return {n: p.dim() + n.startswith("layers.") for n, p in self.named_parameters()}
 
+    def expert_names(self) -> frozenset[str]:
+        """Names of the parameters that hold an MoE layer's experts (split
+        over the model group under a world); a dense SwiGLU's
+        ``ffn.w_gate`` is not one."""
+        names = [n for n, _ in self.named_parameters()]
+        return frozenset(
+            n for n in names
+            if n.endswith(("ffn.w_gate", "ffn.w_up", "ffn.w_down")) and n.rsplit(".", 1)[0] + ".router" in names
+        )
+
     def reference_groups(self) -> list[list[str]]:
         """Parameter names grouped by the JAX leaf that holds them: one
         group per block attribute (the leaf stacked over layers), one per

@@ -43,6 +43,7 @@ from repro_torch.core.schedule import ScheduleTable
 from repro_torch.kernels.moe_gemm import ops as k1
 from repro_torch.models.layers import normal_param
 from repro_torch.parallel import collectives as col
+from repro_torch.parallel import data_parallel as dp
 from repro_torch.parallel.fabric import FABRICS, FabricContext, get_fabric, resolve_fabric
 from repro_torch.parallel.fabric import geometry as geom
 from repro_torch.parallel.sharding import current_world
@@ -131,6 +132,9 @@ def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, ws, *, return_stat
     # wire codec: QDQ the wire-crossing slots on both legs (the bf16 identity leaves them as they are)
     packed = fabric.wire_encode(ctx, packed)
     blocks, state = fabric.dispatch(ctx, packed)
+    # one cast of the local experts a layer call, shared by every block's launch (as JAX casts once): under
+    # autograd each launch would otherwise keep a copy of its own for the backward
+    ws = tuple(w.to(x_loc.dtype) for w in ws)
     ys = [_expert_ffn(ws, blk, live) for blk, live in blocks]
     y_slots = fabric.combine(ctx, packed, state, ys)
     y_loc = fabric.unpack(ctx, packed, y_slots, t)  # [t, d] f32
@@ -216,6 +220,8 @@ def moe_apply(
     if mode != "scheduled":
         get_fabric(mode)  # unknown names fail fast, listing the registry
     world = current_world()
+    if m.expert_2d and world is not None and world.size > 1:
+        raise dp.refuse("expert_2d (the expert FFN width sharded over the data groups)")
     n = 1 if world is None else world.n
     if n == 1 or mode == "dense" or x.shape[1] % n:
         fabric = FABRICS["dense"]

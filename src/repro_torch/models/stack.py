@@ -2,7 +2,9 @@
 place, handing ``table.row(l)`` to the l-th MoE layer.  The training
 stack checkpoints each block under ``cfg.remat == "block"``
 (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of a period),
-so the backward recomputes the block's forward, K1, K5 or K6 included.
+so the backward recomputes the block's forward, K1, K5 or K6 included,
+under the world the forward ran in (the card's autograd runs a backward
+on a thread of its own, where the caller's ``ep_world`` is not current).
 
 Three mixers are ported, chosen by ``cfg.layer_kind(j)``: attention and
 Mamba, each followed by an FFN chosen by ``cfg.ffn_kind(j)`` (the MoE
@@ -15,6 +17,8 @@ scan backward is K6b).  Counterpart of ``repro/models/stack.py``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -26,6 +30,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba, rwkv
 from repro_torch.models.layers import GeluMLP, SwiGLU, ones_param, rmsnorm
 from repro_torch.models.moe import MoE, moe_apply, moe_init
+from repro_torch.parallel.sharding import current_world, ep_world
 
 __all__ = [
     "Block", "block_init", "block_train", "block_prefill", "block_decode", "stack_train", "stack_cache",
@@ -86,9 +91,15 @@ def stack_train(layers, cfg: ModelConfig, x, schedule, *, collect_stats=False):
     returns ``(x, stats)``, the per-layer MoE stats stacked over layers
     (``routing`` [L, 1, E], ``dropped`` / ``admitted`` [L, 1])."""
     stats = []
+    world = current_world()
+
+    def contexts():  # (forward, recompute): the recompute re-enters the forward's world
+        return contextlib.nullcontext(), ep_world(world)
+
     for p, row in zip(layers, schedule_rows(schedule, cfg)):
         if cfg.remat == "block":
-            x, st = checkpoint(block_train, p, cfg, x, row, collect_stats=collect_stats, use_reentrant=False)
+            x, st = checkpoint(block_train, p, cfg, x, row, collect_stats=collect_stats, use_reentrant=False,
+                               context_fn=contexts)
         elif cfg.remat == "none":
             x, st = block_train(p, cfg, x, row, collect_stats=collect_stats)
         else:

@@ -6,8 +6,9 @@
 
 ``params`` and ``grads`` are ``{name: tensor}`` dicts.  Moments are f32.
 The update runs in place (parameters, moments, and the gradients, which
-are scaled by the clip factor) so that the only extra memory is two
-temporaries the size of the largest parameter.  The arithmetic follows
+are scaled by the clip factor), a part of ``UPDATE_CHUNK`` elements of a
+leaf at a time, so that the only extra memory is two temporaries of that
+size.  The arithmetic follows
 ``repro/optim/adamw.py``: clip by the global norm, bias-corrected
 moments, ``eps`` added to ``sqrt(vhat)``, decoupled decay added to the
 step, ``p - lr * delta``.
@@ -26,8 +27,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["AdamW", "cosine_schedule", "global_norm"]
+
+UPDATE_CHUNK = 1 << 24  # elements of a leaf updated at once: the update's two temporaries stay at 64 MB each
 
 
 def cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int, final_frac: float = 0.1) -> Callable:
@@ -46,9 +50,20 @@ def cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int, final_f
     return lr
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor (f32)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+def global_norm(tensors, *, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor (f32).  Under a world,
+    ``tensors`` are the leaves every rank holds alike (counted once) and
+    ``sharded`` the leaves split over ``group`` (the experts over the model
+    group), whose squares are summed over it: the norm of the whole
+    gradient, the same on every rank."""
+    total = sum(torch.sum(torch.square(t.float())) for t in tensors)
+    sharded = list(sharded)
+    if sharded:
+        part = sum(torch.sum(torch.square(t.float())) for t in sharded)
+        if group is not None:
+            dist.all_reduce(part, group=group)
+        total = total + part
+    return torch.sqrt(total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +86,14 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict):
+    def update(self, grads: dict, state: dict, params: dict, *, sharded=frozenset(), group=None):
+        """One step in place.  Under a world, ``sharded`` names the leaves
+        split over ``group`` (the experts over the model group): the clip
+        norm is then the whole gradient's (``global_norm``), so every rank
+        clips by the same factor."""
         step = state["step"] + 1
-        gnorm = global_norm(grads.values())
+        gnorm = global_norm([g for n, g in grads.items() if n not in sharded],
+                            sharded=[g for n, g in grads.items() if n in sharded], group=group)
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
             for g in grads.values():
@@ -83,20 +103,23 @@ class AdamW:
         bc1 = float(1 - np.float32(b1) ** np.float32(step))
         bc2 = float(1 - np.float32(b2) ** np.float32(step))
         for name, p in params.items():
-            g = grads[name].float()
-            mu, nu = state["mu"][name], state["nu"][name]
-            mu.mul_(b1).add_(g, alpha=1 - b1)
-            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-            denom = (nu / bc2).sqrt_().add_(self.eps)
-            delta = (mu / bc1).div_(denom)
-            del denom
-            if state["decay"][name]:
-                delta.add_(p.float(), alpha=self.weight_decay)
-            delta.mul_(lr)
-            if p.dtype == torch.float32:
-                p.sub_(delta)
-            else:
-                p.copy_(p.float().sub_(delta))
-            del delta
+            decay = state["decay"][name]
+            flat = [t.view(-1) for t in (p, grads[name], state["mu"][name], state["nu"][name])]
+            for a in range(0, p.numel(), UPDATE_CHUNK):  # elementwise, so a part at a time: bounded temporaries
+                p_, g, mu, nu = (t[a:a + UPDATE_CHUNK] for t in flat)
+                g = g.float()
+                mu.mul_(b1).add_(g, alpha=1 - b1)
+                nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+                denom = (nu / bc2).sqrt_().add_(self.eps)
+                delta = (mu / bc1).div_(denom)
+                del denom
+                if decay:
+                    delta.add_(p_.float(), alpha=self.weight_decay)
+                delta.mul_(lr)
+                if p_.dtype == torch.float32:
+                    p_.sub_(delta)
+                else:
+                    p_.copy_(p_.float().sub_(delta))
+                del delta
         state["step"] = step
         return params, state, {"grad_norm": gnorm, "lr": lr}

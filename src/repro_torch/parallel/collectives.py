@@ -207,8 +207,9 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # the reduce-scatter, written out: sum over the group in f32, keep this rank's slice
-        total = g.float().contiguous()
+        # the reduce-scatter, written out: sum over the group in f32, keep this rank's slice; a copy, since
+        # autograd may hand the same gradient tensor to another branch (a residual)
+        total = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
         dist.all_reduce(total, group=ctx.group)
         return total[dist.get_rank(ctx.group)].to(g.dtype), None
 
@@ -228,7 +229,8 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        total = g.float().contiguous()
+        # a copy: summing the incoming gradient in place would change what a residual branch sees of it
+        total = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
         dist.all_reduce(total, group=ctx.group)
         return total.to(g.dtype), None
 

@@ -1,9 +1,12 @@
 """The expert-parallel world: a ``torch.distributed`` process group split
 into data x model groups.
 
-The layout is JAX's serving mesh (``repro/launch/serve.py``): ``n`` ranks
-form ``(max(n // 4, 1), min(n, 4))`` on the axes ("data", "model"), rank
-``r`` at ``(r // n_model, r % n_model)``.  The model group is the EP
+The default layout is JAX's serving mesh (``repro/launch/serve.py``):
+``n`` ranks form ``(max(n // 4, 1), min(n, 4))`` on the axes ("data",
+"model"), rank ``r`` at ``(r // n_model, r % n_model)``.  A caller passes
+another ``layout=(n_data, n_model)``: the training launcher takes
+``train_mesh_shape(n)``, JAX's training mesh, and ``regroup`` lays the
+same ranks out anew (an elastic restart inside one job).  The model group is the EP
 group.  Experts are placed contiguously: expert ``e`` lives on model rank
 ``e // e_local``, so a bucket id ``dst_rank * e_local + local_expert`` is
 the expert id.  Every rank of a model group holds the full non-expert
@@ -48,12 +51,14 @@ import torch.distributed as dist
 __all__ = [
     "World",
     "mesh_shape",
+    "train_mesh_shape",
     "world_backend",
     "init_world",
     "close_world",
     "ep_world",
     "current_world",
     "spawn_world",
+    "regroup",
 ]
 
 DEFAULT_TIMEOUT_S = 60.0
@@ -65,6 +70,21 @@ def mesh_shape(n: int) -> tuple[int, int]:
     if shape[0] * shape[1] != n:
         raise ValueError(f"{n} ranks do not form a (data, model) mesh of {shape}")
     return shape
+
+
+def train_mesh_shape(n: int) -> tuple[int, int]:
+    """(data, model) group sizes of ``n`` ranks, as JAX's training mesh
+    (``repro/launch/train.py`` ``build_mesh``): the model group is the
+    largest of 16, 8, 4, 2, 1 that divides ``n``."""
+    model = next(c for c in (16, 8, 4, 2, 1) if n % c == 0)
+    return n // model, model
+
+
+def _check_layout(layout, size: int) -> tuple[int, int]:
+    n_data, n_model = (int(v) for v in layout)
+    if n_data < 1 or n_model < 1 or n_data * n_model != size:
+        raise ValueError(f"layout {tuple(layout)} does not lay out {size} ranks as (data, model)")
+    return n_data, n_model
 
 
 def world_backend(device: torch.device, n: int, n_cards: int) -> str:
@@ -102,6 +122,13 @@ class World:
     def data_index(self) -> int:
         return self.rank // self.n_model
 
+    @property
+    def stage_device(self) -> torch.device:
+        """Where bulk host-side collectives (checkpoint gathers, small
+        flags) run: the host under gloo, which stages CUDA tensors through
+        host memory anyway; the card under NCCL."""
+        return torch.device("cpu") if self.backend == "gloo" else self.device
+
     def expert_range(self, n_experts: int) -> tuple[int, int]:
         """[lo, hi) of the experts this rank holds."""
         if n_experts % self.n_model:
@@ -112,17 +139,18 @@ class World:
 
 def init_world(
     device=None, *, rank: int | None = None, size: int | None = None, init_method: str | None = None,
-    timeout_s: float = DEFAULT_TIMEOUT_S,
+    timeout_s: float = DEFAULT_TIMEOUT_S, layout: tuple[int, int] | None = None,
 ) -> World:
     """Join the process group and build the data and model groups.
 
     ``rank``/``size`` default to ``RANK``/``WORLD_SIZE`` (torchrun) and
     ``init_method`` to ``env://``.  ``device`` "cpu" keeps every tensor on
     the host; otherwise each rank takes card ``LOCAL_RANK % device_count``.
+    ``layout`` (n_data, n_model) defaults to ``mesh_shape(size)``.
     """
     rank = int(os.environ["RANK"]) if rank is None else rank
     size = int(os.environ["WORLD_SIZE"]) if size is None else size
-    n_data, n_model = mesh_shape(size)
+    n_data, n_model = _check_layout(mesh_shape(size) if layout is None else layout, size)
     dev = torch.device("cuda" if device is None else device)
     n_cards = 0
     if dev.type == "cuda":
@@ -137,7 +165,13 @@ def init_world(
         backend, init_method=init_method or "env://", rank=rank, world_size=size,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
-    # every rank creates every group, in the same order
+    return _grouped(rank, size, (n_data, n_model), backend, dev)
+
+
+def _grouped(rank: int, size: int, layout: tuple[int, int], backend: str, dev: torch.device) -> World:
+    """The World of ``layout`` over the joined process group: every rank
+    creates every group, in the same order."""
+    n_data, n_model = layout
     model_group = data_group = None
     for d in range(n_data):
         g = dist.new_group([d * n_model + j for j in range(n_model)])
@@ -149,6 +183,12 @@ def init_world(
             data_group = g
     return World(rank=rank, size=size, n_data=n_data, n_model=n_model, backend=backend, device=dev,
                  model_group=model_group, data_group=data_group)
+
+
+def regroup(world: World, layout: tuple[int, int]) -> World:
+    """The same ranks laid out as ``layout`` (n_data, n_model): new data and
+    model groups over the joined process group.  Every rank calls it."""
+    return _grouped(world.rank, world.size, _check_layout(layout, world.size), world.backend, world.device)
 
 
 def close_world() -> None:
@@ -179,12 +219,13 @@ def current_world() -> World | None:
 
 
 # ------------------------------------------------------------------ spawning
-def _child(rank: int, size: int, rdv: str, out_dir: str, device: str, timeout_s: float, fn, args) -> None:
+def _child(rank: int, size: int, rdv: str, out_dir: str, device: str, timeout_s: float, layout, fn, args) -> None:
     out = os.path.join(out_dir, f"rank{rank}.pkl")
     if device == "cpu":
         torch.set_num_threads(1)  # one thread a rank, as torchrun sets OMP_NUM_THREADS
     try:
-        world = init_world(device, rank=rank, size=size, init_method=f"file://{rdv}", timeout_s=timeout_s)
+        world = init_world(device, rank=rank, size=size, init_method=f"file://{rdv}", timeout_s=timeout_s,
+                           layout=layout)
         try:
             result = ("ok", fn(world, *args))
         finally:
@@ -197,9 +238,10 @@ def _child(rank: int, size: int, rdv: str, out_dir: str, device: str, timeout_s:
 
 
 def spawn_world(fn, size: int, *, device: str = "cpu", args: tuple = (), timeout_s: float = 120.0,
-                init_timeout_s: float = DEFAULT_TIMEOUT_S) -> list:
+                init_timeout_s: float = DEFAULT_TIMEOUT_S, layout: tuple[int, int] | None = None) -> list:
     """Run ``fn(world, *args)`` on ``size`` ranks in spawned processes and
-    return each rank's result, in rank order.
+    return each rank's result, in rank order.  ``layout`` (n_data,
+    n_model) defaults to ``mesh_shape(size)``.
 
     The ranks meet through a rendezvous file in a temporary directory
     (no port).  ``init_timeout_s`` bounds every collective, ``timeout_s``
@@ -208,11 +250,14 @@ def spawn_world(fn, size: int, *, device: str = "cpu", args: tuple = (), timeout
     children (a module-level function).  A CPU rank runs one thread."""
     import torch.multiprocessing as mp
 
+    if layout is not None:
+        _check_layout(layout, size)  # in the parent: a bad layout fails before any rank starts
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         rdv = os.path.join(tmp, "rendezvous")
         procs = [
-            ctx.Process(target=_child, args=(r, size, rdv, tmp, device, init_timeout_s, fn, args), daemon=True)
+            ctx.Process(target=_child, args=(r, size, rdv, tmp, device, init_timeout_s, layout, fn, args),
+                        daemon=True)
             for r in range(size)
         ]
         for p in procs:

@@ -20,7 +20,22 @@ behaviour for behaviour:
   device; its telemetry is read only on the logging cadence;
 * the degradation chain: a ``FabricFaultError`` goes to
   ``runtime.record_fault``, and when ``runtime.active_fabric()`` moves
-  the loop switches the fabric.
+  the loop switches the fabric;
+* across the ranks of a world (``parallel.sharding.ep_world``), JAX's
+  loop under a (data, model) mesh: each data group trains on its rows of
+  the global batch, the step reduces the gradients to the global batch's
+  (``parallel.data_parallel``), checkpoints are layout-free (rank 0
+  writes the global leaves; any layout, or one process, restores them),
+  and ``failure_hook``'s outcome is agreed by one MAX all-reduce before
+  the step's first collective, so a failure on any rank rolls every rank
+  back to the same checkpoint.  A rank's own error inside a step is not
+  retried there (the other ranks wait in a collective it will not join):
+  it raises.  The loss is the global batch's on every rank, so the
+  non-finite check and the failure budget decide alike, and
+  the routing stats are summed over the world (``models/moe.py``), so
+  every rank's runtime re-plans and swaps alike.  ef8, the device
+  controller and a fabric switch are refused there
+  (``data_parallel.NEXT_SLICE``).
 
 Where the port differs, and why:
 
@@ -63,10 +78,20 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.faults import FabricFaultError, NonFiniteLossError
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.parallel import data_parallel as dp
 from repro_torch.parallel.fabric import consumes_schedule as _consumes, consumes_table as _consumes_table
+from repro_torch.parallel.sharding import current_world
 from repro_torch.train.train_step import make_train_step
 
 __all__ = ["TrainLoopConfig", "train_loop"]
+
+
+class _Agreed(Exception):
+    """A failure every rank of the world agreed on (``failure_hook``'s)."""
+
+    def __init__(self, err: Exception):
+        super().__init__(str(err))
+        self.err = err
 
 log = logging.getLogger("repro_torch.train")
 
@@ -106,7 +131,8 @@ def train_loop(
     ``controller`` with a runtime or a device controller, and
     ``device_ctrl_state`` with the latter.
 
-    shard_batch: optional fn(dict of numpy arrays) -> batch (identity).
+    shard_batch: optional fn(dict of numpy arrays) -> batch (identity);
+      under a world it gets this data group's rows.
     failure_hook: called before each step; may raise to inject a failure.
     runtime: a primed ``core.ScheduleRuntime`` (on the model's device);
       the loop observes the previous step's routing and passes the swapped
@@ -119,9 +145,17 @@ def train_loop(
     schedule: a static ``ScheduleTable`` for a table-consuming dispatch
       without a runtime (JAX: the schedule its ``Model`` holds).
     manager: the ``CheckpointManager`` to use (default one on
-      ``loop_cfg.ckpt_dir`` keeping ``loop_cfg.keep``); it records each
-      save's and restore's times.
+      ``loop_cfg.ckpt_dir`` keeping ``loop_cfg.keep``, layout-free under a
+      world); it records each save's and restore's times.
     """
+    world = current_world()
+    if world is not None and world.size == 1:
+        world = None
+    if world is not None:
+        # refused before any collective, on every rank alike (make_train_step refuses ef8 and the fused step)
+        if runtime is not None and runtime.cfg.fallback_chain:
+            raise dp.refuse("a runtime fabric switch (the degradation chain)")
+        rows = dp.batch_rows(data_cfg.global_batch, world)
     if device_controller is not None:
         if runtime is not None:
             raise ValueError(
@@ -191,7 +225,8 @@ def train_loop(
     )
     state = step_fn.state
     if manager is None:
-        manager = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep)
+        manager = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep, world=world,
+                                    sharded=model.expert_names() if world is not None else ())
     at_entry = {n: p.detach().to("cpu", copy=True) for n, p in state["params"].items()}
 
     @torch.no_grad()
@@ -257,8 +292,18 @@ def train_loop(
     while step < loop_cfg.steps:
         try:
             settle_device()
-            if failure_hook is not None:
-                failure_hook(step)
+            if world is None:
+                if failure_hook is not None:
+                    failure_hook(step)
+            else:
+                hook_err = None
+                if failure_hook is not None:
+                    try:
+                        failure_hook(step)
+                    except Exception as e:  # noqa: BLE001 - agreed below, then raised on every rank
+                        hook_err = e
+                if dp.agree(hook_err is not None, world):
+                    raise _Agreed(hook_err or RuntimeError(f"step {step}: another rank of the world failed"))
             if pending_loss is not None:
                 # the previous step has finished by now: this read is the loop's one host sync a step
                 last_loss = float(pending_loss)
@@ -286,7 +331,7 @@ def train_loop(
                     )
             if runtime is not None and chain:
                 follow_chain(step)
-            batch = shard_batch(stream.batch(step))
+            batch = shard_batch(stream.batch(step) if world is None else stream.batch(step, host_slice=rows))
             if device_controller is not None:
                 metrics = step_fn(batch, device_ctrl_state)
                 pending_device = metrics.pop("device_step")
@@ -309,12 +354,19 @@ def train_loop(
             if step >= last_failure_step:
                 consecutive_failures = 0  # progressed past the failing step: the fault was transient
         except Exception as err:  # roll back to the last checkpoint, retry
+            if isinstance(err, _Agreed):
+                err = err.err
+            elif world is not None and not isinstance(err, NonFiniteLossError):
+                # one rank's own fault inside the step: the others wait in a collective it will not join, so
+                # no rank can roll back with it; the world stops (the loss is the world's, so a non-finite
+                # one is seen by every rank alike)
+                raise
             settle_device()
             failures += 1
             consecutive_failures += 1
             last_failure_step = step
             if consecutive_failures > loop_cfg.max_failures:
-                raise
+                raise err
             log.warning("step %d failed (%s); restoring last checkpoint", step, err)
             if runtime is not None and isinstance(err, FabricFaultError):
                 # quarantine the backend and re-plan around the fault's link mask before the retry

@@ -1,5 +1,6 @@
 """Rank-side bodies of the multi-rank tests (``test_torch_fabric_world.py``,
-``test_torch_serve_world.py``, ``test_torch_fabric_world_cuda.py``).
+``test_torch_serve_world.py``, ``test_torch_fabric_world_cuda.py``,
+``test_torch_train_world.py``).
 
 The ranks are spawned processes that import this module, so it imports
 torch, numpy and ``repro_torch`` only, never JAX; the pytest parent
@@ -278,4 +279,227 @@ def card_world(world, spec: dict) -> dict:
         ccfg = with_dispatch(spec["cfg"], dispatch)
         p = load_layer(ccfg, spec["params"], world, device=dev, dtype=torch.bfloat16)
         out[case] = run_layer(p, ccfg, x, build_schedule(sched_spec, device=dev), world)
+    return out
+
+
+# ------------------------------------------------------------ training across ranks
+class CaptureOpt:
+    """An optimizer that keeps a copy of the gradients (and the clip norm)
+    it is handed, then updates as the one it wraps."""
+
+    def __init__(self, opt):
+        self.opt, self.grads, self.norm = opt, None, None
+
+    def init(self, params, **kw):
+        return self.opt.init(params, **kw)
+
+    def update(self, grads, state, params, **kw):
+        self.grads = {n: g.detach().float().cpu().numpy().copy() for n, g in grads.items()}
+        out = self.opt.update(grads, state, params, **kw)
+        self.norm = float(out[2]["grad_norm"])
+        return out
+
+
+def train_model(cfg: ModelConfig, params: dict, world, device="cpu"):
+    """The model of the JAX parameters ``params`` in f32, holding this
+    rank's experts (every expert without a world)."""
+    from repro_torch.models.transplant import load_reference
+
+    kw = {} if world is None else {"rank": world.me, "n_model": world.n_model}
+    return load_reference(cfg, params, device=device, dtype=torch.float32, param_dtype=torch.float32,
+                          requires_grad=True, **kw)
+
+
+def step_grads(cfg: ModelConfig, params: dict, world, data: dict) -> dict:
+    """One train step at ``data`` (``DataConfig`` kwargs, step 0, two
+    microbatches): the loss, the clip norm and the gradients the update was
+    handed (this rank's, reduced over the world)."""
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.train import make_train_step
+
+    model = train_model(cfg, params, world)
+    opt = CaptureOpt(AdamW(lr=1e-3))
+    data_cfg = DataConfig(**data)
+    rows = slice(None) if world is None else dp.batch_rows(data_cfg.global_batch, world)
+    with ep_world(world):
+        step = make_train_step(model, opt, microbatches=2, collect_routing=True)
+        metrics = step(SyntheticStream(data_cfg).batch(0, host_slice=rows))
+    return {"loss": float(metrics["loss"]), "norm": opt.norm, "grads": opt.grads,
+            "dropped": float(metrics["moe_stats"]["dropped"].sum())}
+
+
+def _loop(cfg, params, world, data, ckpt, *, steps, ckpt_every=5, microbatches=2, log_every=1, grad_compress=None,
+          **kw):
+    """``train_loop`` at JAX's multidev_train knobs (peak lr 1e-3, warmup 4)
+    on a fresh model of ``params``; returns (result, model)."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    model = train_model(cfg, params, world)
+    loop_cfg = TrainLoopConfig(steps=steps, ckpt_dir=ckpt, ckpt_every=ckpt_every, microbatches=microbatches,
+                               peak_lr=1e-3, warmup=4, log_every=log_every, grad_compress=grad_compress)
+    with ep_world(world):
+        res = train_loop(model, DataConfig(**data), loop_cfg, **kw)
+    return res, model
+
+
+def _summary(res: dict) -> dict:
+    return {k: res[k] for k in ("history", "final_step", "failures", "final_loss")}
+
+
+def _state(model) -> dict:
+    """This rank's parameters (numpy f32) by name."""
+    return {n: p.detach().float().cpu().numpy().copy() for n, p in model.named_parameters()}
+
+
+def train_world(world, spec: dict) -> dict:
+    """JAX's ``tests/multidev_train.py`` checks on this rank, then the
+    port's own: (a) a clean run, the same run with a failure on rank
+    ``spec["fault_rank"]`` only, and an elastic restart of its checkpoint
+    on ``spec["layout_b"]``; (b) the host controller over ``scheduled``
+    dispatch under drift, each swap's table recorded; with ``spec["nodrop"]``
+    (c) one step's reduced gradients (under ``a2a`` and ``dense``) and (d)
+    the first losses of a loop at a capacity where nothing drops; (e) the checkpoint's state as the fault
+    run left it; (f) what a world refuses."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.core import ControllerConfig, DriftScenario, ScheduleRuntime
+    from repro_torch.parallel.sharding import regroup
+
+    cfg, params, data, ckpt = spec["cfg"], spec["params"], spec["data"], spec["ckpt"]
+    out = {}
+    # (a) clean, one rank's failure at step 8 (first attempt), elastic restart onto another layout
+    res, _ = _loop(cfg, params, world, data, os.path.join(ckpt, "clean"), steps=12)
+    out["clean"] = _summary(res)
+    fired = []
+
+    def boom(step):
+        if world.rank == spec["fault_rank"] and step == 8 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+
+    res, model = _loop(cfg, params, world, data, os.path.join(ckpt, "fault"), steps=12, failure_hook=boom)
+    out["fault"] = {**_summary(res), "fired": bool(fired), "state": _state(model)}
+    other = regroup(world, spec["layout_b"])
+    res, model = _loop(cfg, params, other, data, os.path.join(ckpt, "fault"), steps=15)
+    out["elastic"] = {**_summary(res), "me": other.me, "data_index": other.data_index}
+
+    # (b) the host runtime over scheduled dispatch: drift forces a re-plan, every swap's table kept
+    scfg = with_dispatch(cfg, "scheduled")
+    n_ep = world.n_model
+    runtime = ScheduleRuntime(ControllerConfig(n_ranks=n_ep, n_experts=cfg.moe.n_experts, ema=1.0, cooldown=2,
+                                               group_by="model"), cfg.n_moe_layers)
+    tokens = data["global_batch"] * data["seq_len"] * cfg.moe.top_k
+    runtime.prime(np.full((n_ep, n_ep), tokens / n_ep**2))
+    tables = []
+    observe = runtime.observe
+
+    def observed(*args, **kw):
+        decision = observe(*args, **kw)
+        if decision.changed:
+            t = runtime.table()
+            tables.append({name: getattr(t, name).cpu().numpy().copy()
+                           for name in ("perms", "caps", "valid", "offsets", "n_phases")} | {"envelope": t.envelope})
+        return decision
+
+    runtime.observe = observed
+    scenario = DriftScenario("shift", cfg.moe.n_experts, shift_step=6, seed=0)
+    res, _ = _loop(scfg, params, world, data, os.path.join(ckpt, "ctl"), steps=12, microbatches=1, log_every=2,
+                   runtime=runtime, stats_hook=scenario.stats_hook)
+    out["controller"] = {**_summary(res), "metrics": res["controller"], "tables": tables}
+
+    # (c), (d) at a capacity where nothing drops: the reduced gradients of one step, the first losses of a loop
+    if spec.get("nodrop") is not None:
+        ncfg = spec["nodrop"]
+        # the EP pipeline (a2a: the outputs all-gathered) and the dense fabric's EP form (an all-reduce combine)
+        out["grads"] = {d: step_grads(with_dispatch(ncfg, d), params, world, data) for d in ("a2a", "dense")}
+        res, _ = _loop(ncfg, params, world, data, os.path.join(ckpt, "nodrop"), steps=4)
+        out["nodrop_loop"] = _summary(res)
+
+    # (f) refused under the world, each before any collective
+    out["refused"] = refusals(world, cfg, params, data, os.path.join(ckpt, "refused"))
+    return out
+
+
+def refusals(world, cfg, params, data, ckpt) -> dict:
+    """The message of each NotImplementedError the world raises: ef8, the
+    fused device-controller step, a fabric switch and ``expert_2d``."""
+    from repro_torch.core import ControllerConfig, ScheduleRuntime
+    from repro_torch.launch.train import plan_controller
+
+    import numpy as np
+
+    pcfg = with_dispatch(cfg, "phase_pipelined")
+    out = {}
+    _, ctrl, state = plan_controller(pcfg, batch=data["global_batch"], seq=data["seq_len"],
+                                      virtual_ranks=world.n_model, device="cpu")
+    chain_rt = ScheduleRuntime(ControllerConfig(n_ranks=world.n_model, n_experts=cfg.moe.n_experts,
+                                                fallback_chain=("phase_pipelined", "a2a")), cfg.n_moe_layers)
+    chain_rt.prime(np.full((world.n_model, world.n_model), 8.0))
+    cases = {
+        "ef8": lambda: _loop(cfg, params, world, data, ckpt, steps=1, grad_compress="ef8"),
+        "device_controller": lambda: _loop(pcfg, params, world, data, ckpt, steps=1, device_controller=ctrl,
+                                           device_ctrl_state=state),
+        "fabric_switch": lambda: _loop(pcfg, params, world, data, ckpt, steps=1, runtime=chain_rt),
+        "expert_2d": lambda: _loop(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, expert_2d=True)),
+                                   params, world, data, ckpt, steps=1),
+    }
+    for name, run in cases.items():
+        try:
+            run()
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def card_train_world(world, spec: dict) -> dict:
+    """``train_loop`` on the card under ``world`` (``spec["cfg"]``, a seeded
+    model holding this rank's experts, the launcher's lossless table over
+    the model group): a clean run, the same run with a failure on rank
+    ``spec["fault_rank"]`` only, and its checkpoint restored onto
+    ``spec["layout_b"]``; each run's history, failures and K1/K2/K3
+    launches, and the expert blocks a layer call launches (the table's
+    live phase slots and the local block across EP ranks, one block on a
+    model group of one)."""
+    import os
+
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import plan_table
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import regroup
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    cfg, data, steps = spec["cfg"], spec["data"], spec["steps"]
+
+    def run(w, ckpt, n_steps, hook=None):
+        model = Model(cfg, device=w.device, param_dtype=torch.float32, requires_grad=True, seed=0,
+                      expert_shard=(w.me, w.n_model))
+        table = plan_table(cfg, batch=data["global_batch"], seq=data["seq_len"], virtual_ranks=w.n_model,
+                           n_data=w.n_data, device=w.device)
+        for fn in K1_COUNTERS.values():
+            fn.launches = 0
+        loop_cfg = TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt, ckpt_every=spec["ckpt_every"], peak_lr=3e-4,
+                                   warmup=2, log_every=1)
+        with ep_world(w):
+            res = train_loop(model, DataConfig(**data), loop_cfg, schedule=table, failure_hook=hook)
+        live = sum(1 for v in table.envelope_slots(cfg.moe.n_experts // w.n_model) if v)
+        return {**_summary(res), "launches": {k: fn.launches for k, fn in K1_COUNTERS.items()},
+                "per_call": live + 1 if w.n_model > 1 else 1}
+
+    fired = []
+
+    def boom(step):
+        if world.rank == spec["fault_rank"] and step == spec["fault_at"] and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+
+    out = {"clean": run(world, os.path.join(spec["ckpt"], "clean"), steps)}
+    out["fault"] = {**run(world, os.path.join(spec["ckpt"], "fault"), steps, boom), "fired": bool(fired)}
+    out["elastic"] = run(regroup(world, spec["layout_b"]), os.path.join(spec["ckpt"], "fault"),
+                         steps + spec["more_steps"])
     return out

@@ -172,3 +172,39 @@ def test_train_state_roundtrip_keeps_parameter_storage(tmp_path):
         assert torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b, ka
     assert all(p.data_ptr() == ptrs[n] for n, p in model2.named_parameters())
     assert all(torch.equal(p, model.get_parameter(n)) for n, p in model2.named_parameters())
+
+
+def test_restore_reads_the_stored_members_in_place_and_refuses_a_compressed_file(tmp_path):
+    """Each member's data offset, dtype and shape, as the port's file and
+    the JAX package's (``np.savez``) lay them out, give ``np.load``'s arrays
+    (the scalar and bf16 leaves included); a leaf of another dtype than the
+    stored one is converted; a compressed ``.npz`` is no checkpoint either
+    writes, and raises."""
+    from repro_torch.checkpoint.manager import _members
+
+    w = torch.randn((3, 5), generator=torch.Generator().manual_seed(2)).to(torch.bfloat16)
+    tree = {**_tree(), "bf": w}
+    path = save(str(tmp_path / "a"), 1, tree)
+    npz = os.path.join(path, "arrays.npz")
+    with np.load(npz) as z:
+        flat = {k: z[k] for k in z.files}
+    for writer in (None, np.savez):
+        if writer is not None:
+            writer(npz, **flat)
+        members = _members(npz)
+        assert sorted(members) == sorted(flat)
+        with open(npz, "rb") as f:
+            for key, want in flat.items():
+                offset, dtype, shape = members[key]
+                f.seek(offset)
+                got = np.frombuffer(f.read(want.nbytes), dtype).reshape(shape)
+                np.testing.assert_array_equal(got, want, err_msg=key)
+        out = restore(path, {**_zeros_like(_tree()), "bf": torch.zeros((3, 5), dtype=torch.bfloat16)})
+        assert torch.equal(out["bf"], w) and torch.equal(out["params"]["w"], tree["params"]["w"])
+        assert out["opt"]["step"] == tree["opt"]["step"]
+    f64 = restore(path, {**_zeros_like(_tree()), "bf": torch.zeros((3, 5), dtype=torch.bfloat16)} | {
+        "params": {"w": torch.zeros((4, 4), dtype=torch.float64), "b": torch.zeros(4)}})
+    assert torch.equal(f64["params"]["w"], tree["params"]["w"].double())
+    np.savez_compressed(npz, **flat)
+    with pytest.raises(ValueError, match="compressed"):
+        restore(path, _zeros_like(_tree()))

@@ -12,6 +12,13 @@ steps on disk, the resumed parameters equal to the checkpoint's arrays
 bit for bit, replayed steps equal to the first pass where the table was
 the same, finite losses, K1/K2/K3 launched 2/1/1 times a layer for every
 executed step, and ef8 on the card equal to the CPU bit for bit.
+
+Across ranks (as ``chip_smoke.py``'s phase 15 at full width): a 2-rank
+world sharing the card over gloo, laid out as (data 1, model 2), trains
+the smoke Mixtral under ``phase_pipelined``; a failure on rank 1 alone
+rolls both ranks back, ending at the clean run's final loss within 1e-5,
+and the checkpoint restored onto (data 2, model 1) trains on; K1/K2/K3
+launched 2/1/1 times an expert block of each layer call.
 """
 
 import dataclasses
@@ -21,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_world as tw
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import smoke_config
 from repro_torch.data import DataConfig
@@ -28,6 +36,7 @@ from repro_torch.kernels.moe_gemm import ops as k1
 from repro_torch.launch.train import plan_controller
 from repro_torch.models import Model
 from repro_torch.optim import ef_int8_compress, ef_int8_init
+from repro_torch.parallel.sharding import spawn_world
 from repro_torch.train import TrainLoopConfig, train_loop
 
 SEQ, FAULT_AT, STEPS, RESUME_STEPS = 2048, 7, 10, 12
@@ -135,3 +144,28 @@ def test_ef8_on_card_equals_cpu(cuda_device):
         for n in shapes:
             assert torch.equal(out["cpu"][n], out[cuda_device][n].cpu()), n
             assert torch.equal(on["cpu"][n], on[cuda_device][n].cpu()), n
+
+
+@pytest.mark.cuda
+def test_train_world_survives_a_fault_on_one_rank_and_restarts_on_card(cuda_device, tmp_path):
+    from repro_torch.kernels import build
+
+    build.build_all()  # once, before the ranks start, so they do not race nvcc
+    cfg = smoke_config("mixtral-8x7b")
+    cfg = dataclasses.replace(cfg, remat="block", moe=dataclasses.replace(cfg.moe, dispatch="phase_pipelined"))
+    steps, fault_at, ckpt_every, more = 6, 4, 3, 2
+    spec = {"cfg": cfg, "data": dict(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4), "steps": steps,
+            "ckpt": str(tmp_path), "ckpt_every": ckpt_every, "fault_rank": 1, "fault_at": fault_at,
+            "layout_b": (2, 1), "more_steps": more}
+    ranks = spawn_world(tw.card_train_world, 2, device="cuda", layout=(1, 2), args=(spec,), timeout_s=300)
+    executed = {"clean": steps, "fault": steps + fault_at - ckpt_every, "elastic": more}
+    for r, rank in enumerate(ranks):
+        clean, fault, el = rank["clean"], rank["fault"], rank["elastic"]
+        losses = [h["loss"] for h in clean["history"]]
+        assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        assert fault["fired"] == (r == 1) and fault["failures"] == 1 and fault["final_step"] == steps
+        np.testing.assert_allclose(fault["final_loss"], clean["final_loss"], rtol=1e-5)
+        assert el["final_step"] == steps + more and np.isfinite(el["final_loss"])
+        for name, n in executed.items():
+            blocks = rank[name]["per_call"] * cfg.n_moe_layers * n
+            assert rank[name]["launches"] == {"k1": 2 * blocks, "k2": blocks, "k3": blocks}, (r, name)
