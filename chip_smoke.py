@@ -217,7 +217,12 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    bit for bit at the first 2 steps of each phase, with K6 and K1 held
    against their plain versions in every layer of those eager steps; the
    first batch-1 prefill of each bucket run again with K4, K6 and K1 held
-   in every layer must give the served row bit for bit; K4 (attention
+   in every layer must give the served row bit for bit; Jamba prefills at
+   the exact prompt length (a recurrent state would absorb a bucket's
+   padding), so one padded prompt's admitted slot must hold an
+   exact-length prefill's recurrent leaves (every Mamba layer's ``h`` and
+   conv tail) bit for bit, and the prefill shapes counted are the prompt
+   lengths (h2o-danube's: the buckets); K4 (attention
    layers x prefills), K6 and K1 (Mamba / MoE layers x (prefills + decode
    steps + the capture's warm-up)) launch exactly, K6 and K1 among the
    capture's launches (at decode they run inside the replay);
@@ -329,13 +334,26 @@ file; imports nothing of JAX or of the JAX package.  Phases, in order:
    (20.6 GB: the whole model's f32 parameters and moments) go to
    ``/dev/shm``, at most ``TW_KEEP`` on disk, removed at the end.  It prints
    per-rank peak memory, ms a step (gloo through host memory: not a
-   fabric's time) and each save's and restore's seconds.
+   fabric's time) and each save's and restore's seconds.  Right after the
+   clean run, its state freed, the same world runs 2D expert sharding
+   (``expert_2d``: a rank holds its 4 experts' half of the FFN width, 7168
+   columns, and each expert block's tokens are gathered over the data group
+   around K1 and reduce-scattered back) for ``TW_2D_STEPS`` steps from the
+   same weights and batches, with no checkpoint: each step's loss within
+   ``TW_2D_LOSS_RTOL`` of the clean run's same step and the same on every
+   rank, the expert shapes, every K1 launch and K2/K3 launch pair of the
+   first step held, launches exact (``train_world_2d`` in the kernels
+   line), peak memory a rank printed and below the clean run's.
+
+The script's wall time, the build included, is printed before the kernels
+line.
 
 It prints K4's extra numbers and K2's/K3's per-launch times (with the
 dgrad launch's library time and bound) one a line beside the card's name
 and power limit, phase 12's numbers a config a line, a ``kernels`` JSON
 line (nine entries, K5b's, K6's and K6b's ``replaces`` naming the scans
-the JAX model runs; phase 15's numbers under K1's ``train_world``), then,
+the JAX model runs; phase 15's numbers under K1's ``train_world``, its 2D
+run's under ``train_world["run_2d"]``), then,
 last, ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero before that line.
 """
@@ -511,6 +529,11 @@ TW_RANKS, TW_LAYOUT, TW_LAYOUT_B, TW_BATCH, TW_SEQ, TW_SEED = 4, (2, 2), (1, 4),
 TW_STEPS, TW_MORE_STEPS, TW_CKPT_EVERY, TW_KEEP, TW_FAULT_RANK, TW_FAULT_AT = 6, 2, 3, 2, 1, 4
 TW_LOSS_RTOL, TW_TIMEOUT_S = 1e-5, 900  # the fault run's final loss against the clean run's: JAX's bound
 TW_LABEL = "4 ranks sharing one H100 over gloo, gradients staged through host memory: not a fabric's time"
+# phase 15's 2D run (expert_2d): TW_2D_STEPS steps on the clean run's layout, weights and batches, no checkpoint; a
+# rank holds 4 experts x F/2 (0.656 B parameters).  Each step's loss against the clean run's same step: splitting
+# F adds one bf16 rounding of each partial output before the f32 sum over the data group (the train step's
+# kernel-vs-plain bound is GRAD_REL_TOL = 2e-2)
+TW_2D_STEPS, TW_2D_LOSS_RTOL = 3, 2e-3
 
 # the engine's traced run (after the timed phases): 8 requests at once, prompts in all three buckets
 ENGINE_TRACE_PROMPTS, ENGINE_TRACE_NEW, ENGINE_TRACE_REPLAYS = (40, 100, 200, 60, 120, 240, 30, 250), 16, 5
@@ -1149,11 +1172,31 @@ def _tw_recorder(records: list, on: list):
     return rec_fwd, rec_bwd, restore
 
 
-def _tw_run(world, cfg, ckpt_dir: str, steps: int, *, keep: int, ckpt_every: int, hook=None, hold: str | None = None) -> dict:
+class _NoCheckpoints:
+    """A checkpoint manager that keeps nothing: phase 15's 2D run takes no
+    checkpoint (``train_loop`` would write one at its last step)."""
+
+    def __init__(self):
+        self.saves, self.restores = [], []
+
+    def restore_latest(self, template):
+        return None, None
+
+    def save_async(self, step, tree) -> None:
+        pass
+
+    def wait(self) -> None:
+        pass
+
+
+def _tw_run(world, cfg, ckpt_dir: str | None, steps: int, *, keep: int = 1, ckpt_every: int = 1, hook=None,
+            hold: str | None = None) -> dict:
     """One ``train_loop`` on a fresh seeded model holding this rank's
-    experts, under ``world``: its result, K1/K2/K3 launches, peak memory,
-    each save's and restore's times and, with ``hold``, K1 and K2/K3 held
-    against their plain versions on every launch of the first step."""
+    experts (under 2D their slice of the FFN width, ``World.model_shards``),
+    under ``world``: its result, K1/K2/K3 launches, peak memory, each save's
+    and restore's times and, with ``hold``, K1 and K2/K3 held against their
+    plain versions on every launch of the first step.  ``ckpt_dir`` None
+    takes no checkpoint."""
     import torch
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels.moe_gemm import ops as k1
@@ -1164,11 +1207,12 @@ def _tw_run(world, cfg, ckpt_dir: str, steps: int, *, keep: int, ckpt_every: int
 
     dev = world.device
     model = Model(cfg, device=dev, param_dtype=torch.float32, requires_grad=True, seed=TW_SEED,
-                  expert_shard=(world.me, world.n_model))
+                  **world.model_shards(cfg))
     table = plan_table(cfg, batch=TW_BATCH, seq=TW_SEQ, virtual_ranks=world.n_model, n_data=world.n_data, device=dev)
     e_local = cfg.moe.n_experts // world.n_model
     live = sum(1 for v in table.envelope_slots(e_local) if v)
-    manager = CheckpointManager(ckpt_dir, keep=keep, world=world, sharded=model.expert_names())
+    manager = _NoCheckpoints() if ckpt_dir is None else CheckpointManager(
+        ckpt_dir, keep=keep, world=world, sharded=model.expert_names(), ffn_axes=model.ffn_axes())
     records, on = [], [False]
     rec_fwd, rec_bwd, restore_records = _tw_recorder(records, on)
 
@@ -1182,8 +1226,8 @@ def _tw_run(world, cfg, ckpt_dir: str, steps: int, *, keep: int, ckpt_every: int
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    loop_cfg = TrainLoopConfig(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, keep=keep, peak_lr=PEAK_LR,
-                               warmup=WARMUP, log_every=1)
+    loop_cfg = TrainLoopConfig(steps=steps, ckpt_dir=ckpt_dir or "", ckpt_every=ckpt_every, keep=keep,
+                               peak_lr=PEAK_LR, warmup=WARMUP, log_every=1)
     t0 = time.perf_counter()
     with ep_world(world), mock.patch.object(k1, "_forward", rec_fwd), mock.patch.object(k1, "_backward", rec_bwd):
         res = train_loop(model, data_config(cfg, seq=TW_SEQ, batch=TW_BATCH), loop_cfg, schedule=table,
@@ -1191,7 +1235,8 @@ def _tw_run(world, cfg, ckpt_dir: str, steps: int, *, keep: int, ckpt_every: int
     torch.cuda.synchronize()
     out = {"res": res, "wall_s": time.perf_counter() - t0, "launches": {k: fn.launches for k, fn in counters.items()},
            "live": live, "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "saves": manager.saves,
-           "restores": manager.restores, "params_b": sum(p.numel() for p in model.parameters()) / 1e9}
+           "restores": manager.restores, "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+           "expert_shapes": {n: list(p.shape) for n, p in model.named_parameters() if n in model.expert_names()}}
     del model, manager
     gc.collect()
     torch.cuda.empty_cache()
@@ -1228,6 +1273,12 @@ def train_rank(world, ckpt_root: str) -> dict:
     dist.barrier()
     if world.rank == 0:
         shutil.rmtree(clean_dir, ignore_errors=True)
+    # 2D expert sharding on the same layout, weights and batches (the clean run's state freed by _tw_run)
+    cfg_2d = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, expert_2d=True))
+    if not world.two_d(cfg_2d):
+        raise AssertionError(f"phase 15: {TW_LAYOUT} does not run expert_2d")
+    run_2d = _tw_run(world, cfg_2d, None, TW_2D_STEPS, hold=f"phase 15 2D rank {world.rank} step 0")
+    dist.barrier()
     fired = []
 
     def boom(step):
@@ -1247,7 +1298,7 @@ def train_rank(world, ckpt_root: str) -> dict:
     other = regroup(world, TW_LAYOUT_B)
     elastic = _tw_run(other, cfg, fault_dir, TW_STEPS + TW_MORE_STEPS, keep=TW_KEEP, ckpt_every=TW_CKPT_EVERY)
     elastic["layout"] = (other.n_data, other.n_model, other.data_index, other.me)
-    return {"clean": clean, "fault": fault, "elastic": elastic}
+    return {"clean": clean, "clean_2d": run_2d, "fault": fault, "elastic": elastic}
 
 
 def train_world_phase(card: str, counted) -> tuple:
@@ -1298,7 +1349,7 @@ def train_world_phase(card: str, counted) -> tuple:
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     t_world = time.perf_counter() - t_phase
-    launches = dict.fromkeys(counted, 0)
+    launches, launches_2d = dict.fromkeys(counted, 0), dict.fromkeys(counted, 0)
     names = {"k1": "moe_gemm_grouped", "k2": "moe_gemm_grouped_dgrad", "k3": "moe_gemm_grouped_wgrad"}
 
     def losses(run):
@@ -1337,11 +1388,41 @@ def train_world_phase(card: str, counted) -> tuple:
                      f"({n_steps} steps, {per_call} launches a layer call)")
             for k, v in run["launches"].items():
                 launches[names[k]] += v
-        held_n = {k: v["n"] for k, v in clean["held"].items()}
-        per_call = clean["live"] + 1
-        if held_n != {"k1": 2 * per_call, "k2": per_call, "k3": per_call}:
-            fail(f"phase 15 rank {r}: K1/K2/K3 held {held_n} times in the first step, expected every launch of it")
+        for run_name in ("clean", "clean_2d"):
+            run = rank[run_name]
+            held_n = {k: v["n"] for k, v in run["held"].items()}
+            per_call = run["live"] + 1
+            if held_n != {"k1": 2 * per_call, "k2": per_call, "k3": per_call}:
+                fail(f"phase 15 rank {r} {run_name}: K1/K2/K3 held {held_n} times in the first step, expected every "
+                     f"launch of it")
+        # the 2D run: every step's loss the clean run's within TW_2D_LOSS_RTOL, the same on every rank; each rank
+        # holds its 4 experts' half of the FFN width; launches as the clean run's steps; less memory a rank
+        r2 = rank["clean_2d"]
+        l2 = losses(r2)
+        if r2["res"]["final_step"] != TW_2D_STEPS or len(l2) != TW_2D_STEPS or not np.all(np.isfinite(l2)):
+            fail(f"phase 15 rank {r} 2D: losses {l2}, final step {r2['res']['final_step']}")
+        if l2 != losses(ranks[0]["clean_2d"]):
+            fail(f"phase 15 rank {r} 2D: the losses differ from rank 0's")
+        rel_2d = [abs(a - b) / abs(b) for a, b in zip(l2, lc)]
+        if max(rel_2d) > TW_2D_LOSS_RTOL:
+            fail(f"phase 15 rank {r} 2D: losses {l2} against the clean run's {lc[:TW_2D_STEPS]}: relative "
+                 f"{max(rel_2d):.3g} beyond {TW_2D_LOSS_RTOL}")
+        n_exp = 8 // TW_LAYOUT[1]
+        want_shapes = {"w_gate": [n_exp, 4096, 14336 // TW_LAYOUT[0]], "w_up": [n_exp, 4096, 14336 // TW_LAYOUT[0]],
+                       "w_down": [n_exp, 14336 // TW_LAYOUT[0], 4096]}
+        if {n.rsplit(".", 1)[-1]: v for n, v in r2["expert_shapes"].items()} != want_shapes:
+            fail(f"phase 15 rank {r} 2D: expert shapes {r2['expert_shapes']}, expected {want_shapes}")
+        per_call = r2["live"] + 1
+        want = {"k1": 2 * per_call * TW_2D_STEPS, "k2": per_call * TW_2D_STEPS, "k3": per_call * TW_2D_STEPS}
+        if r2["launches"] != want:
+            fail(f"phase 15 rank {r} 2D: K1/K2/K3 launched {r2['launches']}, expected {want}")
+        for k, v in r2["launches"].items():
+            launches_2d[names[k]] += v
+        if not r2["peak_gb"] < clean["peak_gb"]:
+            fail(f"phase 15 rank {r} 2D: peak memory {r2['peak_gb']:.2f} GB, not below the clean run's "
+                 f"{clean['peak_gb']:.2f}")
     held = {k: max(rank["clean"]["held"][k]["max"] for rank in ranks) for k in ("k1", "k2", "k3")}
+    held_2d = {k: max(rank["clean_2d"]["held"][k]["max"] for rank in ranks) for k in ("k1", "k2", "k3")}
     lc, lf = losses(c0), losses(ranks[0]["fault"])
     bit_equal = all(losses(rank["fault"]) == losses(rank["clean"]) for rank in ranks)
 
@@ -1361,6 +1442,13 @@ def train_world_phase(card: str, counted) -> tuple:
                   for rec in ranks[0][run]["saves"]],
         "restores": {run: [rank[run]["restores"] for rank in ranks] for run in ("fault", "elastic")},
         "held": held, "world_s": t_world,
+        "run_2d": {"steps": TW_2D_STEPS, "losses": losses(ranks[0]["clean_2d"]),
+                   "loss_rel_to_clean": max(abs(a - b) / abs(b) for a, b in zip(losses(ranks[0]["clean_2d"]), lc)),
+                   "params_b_per_rank": [rank["clean_2d"]["params_b"] for rank in ranks],
+                   "peak_gb": [rank["clean_2d"]["peak_gb"] for rank in ranks],
+                   "step_ms": max(step_ms(rank["clean_2d"]) for rank in ranks),
+                   "wall_s": max(rank["clean_2d"]["wall_s"] for rank in ranks), "held": held_2d,
+                   "launches": launches_2d},
     }
     print(f"phase 15: 1-layer full-width Mixtral-8x7B trained across {TW_RANKS} ranks (data, model) {TW_LAYOUT}, "
           f"phase_pipelined, {TW_BATCH} x {TW_SEQ} tokens, {numbers['params_b_per_rank'][0]:.3f} B parameters a rank: "
@@ -1374,6 +1462,16 @@ def train_world_phase(card: str, counted) -> tuple:
     print(f"phase 15: every K1 launch and K2/K3 launch pair of each rank's first step held against the plain versions: "
           f"K1 max err {held['k1']:.4g}, K2 max err {held['k2']:.4g} (tol {BF16_TOL} + {BF16_TOL}*|plain|), K3 rel L2 "
           f"{held['k3']:.3g} (tol {WGRAD_REL_L2}); launches {launches} ({card})")
+    n2 = numbers["run_2d"]
+    print(f"phase 15 2D (expert_2d, {TW_LAYOUT}, 4 experts x F/2 a rank, {n2['params_b_per_rank'][0]:.3f} B parameters "
+          f"a rank): losses {[round(v, 6) for v in n2['losses']]} against the clean run's "
+          f"{[round(v, 6) for v in lc[:TW_2D_STEPS]]}: relative {n2['loss_rel_to_clean']:.3g} (tol {TW_2D_LOSS_RTOL}); "
+          f"peak memory a rank {[round(v, 2) for v in n2['peak_gb']]} GB against the clean run's "
+          f"{[round(v, 2) for v in numbers['peak_gb']['clean']]}; {n2['step_ms']:.1f} ms a step (the slowest rank's "
+          f"median after step 0), {n2['wall_s']:.1f} s for the run | {TW_LABEL} ({card})")
+    print(f"phase 15 2D: every K1 launch and K2/K3 launch pair of each rank's first step held against the plain "
+          f"versions: K1 max err {held_2d['k1']:.4g}, K2 max err {held_2d['k2']:.4g}, K3 rel L2 {held_2d['k3']:.3g}; "
+          f"launches {launches_2d} ({card})")
     for run in ("clean", "fault", "elastic"):
         print(f"phase 15 {run}: peak memory a rank {[round(v, 2) for v in numbers['peak_gb'][run]]} GB "
               f"(torch.cuda.max_memory_allocated); {numbers['step_ms'][run]:.1f} ms a step (the slowest rank's median "
@@ -1385,10 +1483,11 @@ def train_world_phase(card: str, counted) -> tuple:
         print(f"phase 15 {run}: restores a rank (step, s) {[[(r_['step'], round(r_['s'], 1)) for r_ in rr] for rr in recs]} "
               f"({card})")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s wall, the world {t_world:.1f} s ({card})")
-    return launches, numbers
+    return launches, launches_2d, numbers
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch next to {Path(__file__).name}: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
@@ -3779,7 +3878,34 @@ def main() -> None:
                          f"kernels held")
             return out
 
-        eng._decode_once, eng._prefill_row = held_decode, timed_prefill
+        # a recurrent model prefills at the exact prompt length: one padded prompt's admitted slot must hold the
+        # recurrent leaves of an exact-length prefill of the same prompt on a fresh cache, bit for bit
+        recurrent = [l for l, k_ in enumerate(kinds_) if k_ in ("mamba", "rwkv6")]
+        real_admit, padded_row, last_prefill = eng._admit, {}, [None]
+
+        def checked_admit(row, slot, plen):
+            real_admit(row, slot, plen)
+            req = last_prefill[0]
+            if not recurrent or padded_row or plen == eng.queue.bucket_of(plen):
+                return
+            exact = amodel.init_cache(1, eng.max_len, eng.cache_dtype)
+            before = read_counts()  # the reference prefill's launches are not the engine's
+            with torch.inference_mode():
+                amodel.prefill(torch.from_numpy(req.prompt[None, :-1]).to(dev), exact, schedule=eng._prefill_table)
+            for name, fn in COUNTED.items():
+                fn.launches = before[name]
+            same = all(torch.equal(eng._caches[l][key][slot], exact[l][key][0]) for l in recurrent for key in exact[l])
+            padded_row.update(plen=plen, bucket=eng.queue.bucket_of(plen), same=same,
+                              leaves=sorted({key for l in recurrent for key in exact[l]}))
+            if not same:
+                fail(f"{arch} engine: a padded prompt's admitted row (prefill {plen} of bucket "
+                     f"{padded_row['bucket']}) differs from an exact-length prefill's recurrent leaves")
+
+        def noted_prefill(req, bucket):
+            last_prefill[0] = req
+            return timed_prefill(req, bucket)
+
+        eng._decode_once, eng._prefill_row, eng._admit = held_decode, noted_prefill, checked_admit
         erng = np.random.default_rng(ENGINE_SEED + 12)
         t_eng = time.perf_counter()
         reset_counts()
@@ -3801,9 +3927,18 @@ def main() -> None:
                          f"{c_['decode_executables']} decode graphs")
         counted = read_counts()
         wall = time.perf_counter() - t_eng
-        del eng._decode_once, eng._prefill_row
-        if eng.metrics()["compile"]["prefill_executables"] != len(ENGINE_KW["buckets"]):
-            fail(f"{arch} engine: {eng.metrics()['compile']['prefill_executables']} bucket shapes prefilled")
+        del eng._decode_once, eng._prefill_row, eng._admit
+        # the distinct prefill shapes: the buckets, or a recurrent model's exact prompt lengths
+        shapes_ = {n - 1 for n in ENGINE_TRACE_PROMPTS} if recurrent else set(ENGINE_KW["buckets"])
+        if eng.metrics()["compile"]["prefill_executables"] != len(shapes_):
+            fail(f"{arch} engine: {eng.metrics()['compile']['prefill_executables']} prefill shapes, expected "
+                 f"{len(shapes_)}")
+        if recurrent and not padded_row:
+            fail(f"{arch} engine: no padded prompt's admitted row was held against an exact-length prefill")
+        if recurrent:
+            print(f"{arch} engine: a padded prompt's admitted row (prefill {padded_row['plen']} in bucket "
+                  f"{padded_row['bucket']}) equals an exact-length prefill's {padded_row['leaves']} in every recurrent "
+                  f"layer bit for bit: {padded_row['same']} ({card})")
         main_, captured, warmup = engine_launches_of(kinds, counted, eng.graph_replays)
         n_prefill, n_decode = sum(len(v) for v in prefill_ms.values()), len(step_ms)
         expect = dict.fromkeys(COUNTED, 0)
@@ -3829,7 +3964,8 @@ def main() -> None:
         row = {"decode_ms_per_step_median": float(np.median(step_ms)), "decode_steps": n_decode,
                "prefill_ms_median": {b_: float(np.median(v)) for b_, v in sorted(prefill_ms.items())},
                "graph_replays": eng.graph_replays, "held_steps": len(held), "wall_s": wall,
-               "held_max_abs_err": {"prefill": held_errs["prefill"], "decode": decode_errs}}
+               "held_max_abs_err": {"prefill": held_errs["prefill"], "decode": decode_errs},
+               "padded_row_exact": padded_row or None}
         print(f"{arch} engine: decode ms/step (graph, host clock) median {row['decode_ms_per_step_median']:.2f} | "
               f"prefill ms median by bucket {row['prefill_ms_median']} | {wall:.1f} s wall ({card})")
         for key in COUNTED:
@@ -4085,7 +4221,7 @@ def main() -> None:
     ep_layer_launches, ep_serve_launches, ep_rows, ep_held, ep_serve = ep_phase(dev, card, COUNTED)
 
     # 15. training across TW_RANKS ranks sharing the card: clean, a fault on one rank, an elastic restart
-    tw_launches, tw_numbers = train_world_phase(card, COUNTED)
+    tw_launches, tw_2d_launches, tw_numbers = train_world_phase(card, COUNTED)
 
     # the kernels line, then the result line
     path_launches = {
@@ -4097,7 +4233,7 @@ def main() -> None:
                "slice12_engine": engine12_launches[name], "slice12_long_500k": long12_launches[name],
                "train13": train13_launches[name], "ep_layer": ep_layer_launches[name],
                "ep_serve": ep_serve_launches[name], "hier_engine": hier_engine["launches"][name],
-               "train_world": tw_launches[name]}
+               "train_world": tw_launches[name], "train_world_2d": tw_2d_launches[name]}
         for name in COUNTED
     }
     kernels = [
@@ -4180,6 +4316,7 @@ def main() -> None:
         print(f"phase 12 {arch}: {json.dumps(row)} ({card})")
     for arch, row in train13.items():
         print(f"phase 13 {arch}: {json.dumps(row)} ({card})")
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s wall, the build included ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

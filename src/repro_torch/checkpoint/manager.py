@@ -28,16 +28,22 @@ scalars: the train state is ``{"params": {name: tensor}, "opt": {...},
 * **keep-K GC**: old steps deleted after a successful newer save.
 
 **Layout-free under a world** (``CheckpointManager(..., world=,
-sharded=)``): ``sharded`` names the parameters split over the model group
-(the experts, ``Model.expert_names()``); a leaf whose last path part is
-one of them (the parameter and its two moments) is gathered over data
-group 0's model group into the global ``[E, ...]`` leaf, and global rank
-0 writes the same ``step_<N>`` layout as one process (the other data
-groups hold the same values).  ``wait()`` ends with a barrier over the
-world, so every rank then reads the same ``latest_step``; a restore
-reads the global leaf and copies in this rank's ``expert_range`` slice.
-So a checkpoint written on one layout restores onto another, and onto
-one process, as JAX's unsharded arrays do.  Every rank reads the same
+sharded=, ffn_axes=)``): ``sharded`` names the parameters split over the
+model group (the experts, ``Model.expert_names()``); a leaf whose last
+path part is one of them (the parameter and its two moments) is gathered
+over data group 0's model group into the global ``[E, ...]`` leaf, and
+global rank 0 writes the same ``step_<N>`` layout as one process (the
+other data groups hold the same values).  Under 2D expert sharding
+``ffn_axes`` (``Model.ffn_axes()``) gives each such leaf's FFN-width axis,
+split over the data groups: the slices are first gathered over each data
+group onto its rank of data group 0, along that axis.  ``wait()`` ends
+with a barrier over the world, so every rank then reads the same
+``latest_step``; a restore reads this rank's ``expert_range`` slice of
+the global leaf (and, under 2D, its ``ffn_range`` of each expert: a
+contiguous run of rows for ``w_down``, each expert's block read and
+sliced for ``w_gate``/``w_up``), never the whole leaf.  So a checkpoint
+written on one layout restores onto another, 2D or not, and onto one
+process, as JAX's unsharded arrays do.  Every rank reads the same
 directory (one host, or a shared file system).
 
 ``np.savez`` has no bfloat16: a bf16 leaf is stored as its raw 16-bit
@@ -88,13 +94,25 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def _gather_leaf(leaf: torch.Tensor, world) -> np.ndarray | None:
-    """The global ``[E, ...]`` leaf of an expert slice, gathered over data
-    group 0's model group onto global rank 0 (None on its other ranks)."""
+def _gather_leaf(leaf: torch.Tensor, world, f_axis: int | None) -> np.ndarray | None:
+    """The global ``[E, ...]`` leaf of an expert slice on global rank 0
+    (None on its other ranks): with ``f_axis`` (2D) the FFN slices gathered
+    over each data group onto its rank of data group 0 along that axis,
+    then the experts over data group 0's model group."""
     t = leaf.detach()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     t = t.to(world.stage_device).contiguous()
+    if f_axis is not None:
+        if world.data_index != 0:
+            dist.gather(t, None, dst=world.me, group=world.data_group)  # (0, me) is global rank me
+            return None
+        parts = [torch.empty_like(t) for _ in range(world.n_data)]
+        dist.gather(t, parts, dst=world.me, group=world.data_group)
+        t = torch.cat(parts, dim=f_axis)
+        del parts
+    if world.n_model == 1:
+        return t.cpu().numpy() if world.rank == 0 else None
     if world.rank != 0:
         dist.gather(t, None, dst=0, group=world.model_group)
         return None
@@ -103,19 +121,20 @@ def _gather_leaf(leaf: torch.Tensor, world) -> np.ndarray | None:
     return out.cpu().numpy()
 
 
-def _flatten(tree, world=None, sharded=frozenset()) -> tuple[dict[str, np.ndarray], dict[str, str]]:
+def _flatten(tree, world=None, sharded=frozenset(), ffn_axes=None) -> tuple[dict[str, np.ndarray], dict[str, str]]:
     """Host copies of every leaf by path, and each leaf's dtype name.
     Every device-to-host copy has completed when this returns.  Under a
-    world (``sharded`` as ``CheckpointManager``'s) the ranks of data group
-    0 gather the expert leaves and rank 0 alone returns the copies; the
-    others return empty dicts."""
+    world (``sharded`` and ``ffn_axes`` as ``CheckpointManager``'s) the
+    expert leaves are gathered onto rank 0, which alone returns the
+    copies; the others return empty dicts."""
     flat, dtypes = {}, {}
     for path, parent, key in _walk(tree):
         leaf = parent[key]
-        if world is not None and _is_sharded(path, leaf, world, sharded):
-            if world.data_index != 0:
-                continue
-            arr = _gather_leaf(leaf, world)
+        split = None if world is None else _split(path, leaf, world, sharded, ffn_axes)
+        if split is not None:
+            if split[1] is None and world.data_index != 0:
+                continue  # every data group holds the same experts: data group 0's are gathered
+            arr = _gather_leaf(leaf, world, split[1])
             if arr is None:
                 continue
             flat[path] = arr
@@ -128,9 +147,17 @@ def _flatten(tree, world=None, sharded=frozenset()) -> tuple[dict[str, np.ndarra
     return flat, dtypes
 
 
-def _is_sharded(path: str, leaf, world, sharded) -> bool:
-    """A tensor leaf of an expert parameter split over the model group."""
-    return world.n_model > 1 and isinstance(leaf, torch.Tensor) and path.rsplit(SEP, 1)[-1] in sharded
+def _split(path: str, leaf, world, sharded, ffn_axes) -> tuple[bool, int | None] | None:
+    """How a tensor leaf of an expert parameter is split across the world:
+    (over the model group, its FFN-width axis split over the data groups or
+    None); None for a leaf every rank holds whole."""
+    name = path.rsplit(SEP, 1)[-1]
+    if not isinstance(leaf, torch.Tensor) or name not in sharded:
+        return None
+    f_axis = (ffn_axes or {}).get(name) if world.n_data > 1 else None
+    if world.n_model == 1 and f_axis is None:
+        return None
+    return world.n_model > 1, f_axis
 
 
 def _savez(path: str, flat: dict) -> None:
@@ -216,14 +243,42 @@ def _read_into(f, offset: int, dst: torch.Tensor, stage: list) -> None:
         raw[a:a + n].copy_(stage[0][:n])
 
 
-def restore(path: str, template, *, world=None, sharded=frozenset()):
+def _read_array(f, offset: int, shape, dtype, stored) -> torch.Tensor | np.ndarray:
+    """The stored array of ``shape`` at ``offset``, on the host (a torch
+    view for a bf16 member, else numpy)."""
+    arr = np.empty(shape, dtype)
+    f.seek(offset)
+    _read_exact(f, memoryview(arr.reshape(-1)).cast("B"))
+    return torch.from_numpy(arr).view(torch.bfloat16) if stored == torch.bfloat16 else arr
+
+
+@torch.no_grad()
+def _read_ffn_slice(f, offset: int, shape, dtype, stored, leaf: torch.Tensor, f_axis: int, f_range) -> None:
+    """This rank's FFN-width slice ``f_range`` of each of the experts the
+    leaf holds (stored contiguously from ``offset``, each ``shape[1:]``):
+    rows ``f_range`` of a ``w_down`` block (axis 1), or a ``w_gate``/``w_up``
+    block [d, F] read whole and its columns sliced (axis 2)."""
+    per_expert = int(np.prod(shape[1:])) * dtype.itemsize
+    lo, hi = f_range
+    for e in range(leaf.shape[0]):
+        base = offset + e * per_expert
+        if f_axis == 1:
+            row = int(np.prod(shape[2:])) * dtype.itemsize
+            part = _read_array(f, base + lo * row, (hi - lo, *shape[2:]), dtype, stored)
+        else:
+            part = _read_array(f, base, shape[1:], dtype, stored)[..., lo:hi]
+        leaf[e].copy_(torch.as_tensor(part))
+
+
+def restore(path: str, template, *, world=None, sharded=frozenset(), ffn_axes=None):
     """Restore into ``template`` in place, leaf by leaf, and return it.
     Tensor leaves keep their storage and dtype (a leaf of the stored dtype
     reads its bytes straight in: one pass over the file's, only this rank's
     slice of an expert leaf); a scalar leaf takes the stored value as the
-    template's type.  Under a world an expert leaf (``sharded`` as
-    ``CheckpointManager``'s) takes this rank's ``expert_range`` slice of the
-    stored global leaf."""
+    template's type.  Under a world an expert leaf (``sharded`` and
+    ``ffn_axes`` as ``CheckpointManager``'s) takes this rank's
+    ``expert_range`` slice of the stored global leaf, and under 2D its
+    ``ffn_range`` of each of those experts."""
     with open(os.path.join(path, "manifest.json")) as f:
         dtypes = json.load(f)["dtypes"]
     npz = os.path.join(path, "arrays.npz")
@@ -234,26 +289,30 @@ def restore(path: str, template, *, world=None, sharded=frozenset()):
                 raise KeyError(f"checkpoint missing array {key!r}")
             offset, dtype, shape = members[key]
             leaf = parent[k]
-            if world is not None and _is_sharded(key, leaf, world, sharded):
+            stored = torch.bfloat16 if dtypes.get(key) == "bfloat16" else torch.from_numpy(np.empty(0, dtype)).dtype
+            split = None if world is None else _split(key, leaf, world, sharded, ffn_axes)
+            f_axis = None
+            if split is not None:
                 lo, hi = world.expert_range(shape[0])
                 offset += lo * int(np.prod(shape[1:])) * dtype.itemsize
-                shape = (hi - lo, *shape[1:])
+                stored_shape, shape = shape, (hi - lo, *shape[1:])
+                f_axis = split[1]
+                if f_axis is not None:
+                    f_lo, f_hi = world.ffn_range(shape[f_axis])
+                    shape = tuple(f_hi - f_lo if a == f_axis else v for a, v in enumerate(shape))
             want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else np.shape(leaf)
             if tuple(shape) != tuple(want):
                 raise ValueError(f"{key}: checkpoint shape {shape} != model {want}")
-            stored = torch.bfloat16 if dtypes.get(key) == "bfloat16" else torch.from_numpy(np.empty(0, dtype)).dtype
+            if f_axis is not None:
+                _read_ffn_slice(f, offset, stored_shape, dtype, stored, leaf, f_axis, (f_lo, f_hi))
+                continue
             if isinstance(leaf, torch.Tensor) and leaf.dtype == stored and leaf.is_contiguous():
                 _read_into(f, offset, leaf, stage)
                 continue
-            arr = np.empty(shape, dtype)
-            f.seek(offset)
-            _read_exact(f, memoryview(arr.reshape(-1)).cast("B"))
+            arr = _read_array(f, offset, shape, dtype, stored)
             if isinstance(leaf, torch.Tensor):
-                src = torch.from_numpy(arr)
-                if stored == torch.bfloat16:
-                    src = src.view(torch.bfloat16)
                 with torch.no_grad():
-                    leaf.copy_(src)
+                    leaf.copy_(torch.as_tensor(arr))
             elif isinstance(leaf, np.ndarray):
                 leaf[...] = arr
             else:
@@ -262,15 +321,18 @@ def restore(path: str, template, *, world=None, sharded=frozenset()):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, *, world=None, sharded=frozenset()):
-        """``world`` (a ``parallel.sharding.World`` of several ranks) and
-        ``sharded`` (the parameter names split over its model group) make
-        the checkpoints layout-free (module doc); every rank of the world
-        makes the same calls in the same order."""
+    def __init__(self, directory: str, keep: int = 3, *, world=None, sharded=frozenset(), ffn_axes=None):
+        """``world`` (a ``parallel.sharding.World`` of several ranks),
+        ``sharded`` (the parameter names split over its model group) and,
+        under 2D expert sharding, ``ffn_axes`` (their FFN-width axes, split
+        over its data groups) make the checkpoints layout-free (module
+        doc); every rank of the world makes the same calls in the same
+        order."""
         self.directory = directory
         self.keep = keep
         self.world = world if world is not None and world.size > 1 else None
         self.sharded = frozenset(sharded)
+        self.ffn_axes = dict(ffn_axes or {})
         self._thread: threading.Thread | None = None
         self.saves: list[dict] = []
         self.restores: list[dict] = []
@@ -308,7 +370,7 @@ class CheckpointManager:
             return None, None
         t0 = time.perf_counter()
         out = restore(os.path.join(self.directory, f"step_{step:08d}"), template, world=self.world,
-                      sharded=self.sharded)
+                      sharded=self.sharded, ffn_axes=self.ffn_axes)
         self.restores.append({"step": step, "s": time.perf_counter() - t0})
         return step, out
 
@@ -322,7 +384,7 @@ class CheckpointManager:
         gathers too), write in the background (rank 0 alone under a world)."""
         self.wait()
         t0 = time.perf_counter()
-        flat, dtypes = _flatten(tree, self.world, self.sharded)
+        flat, dtypes = _flatten(tree, self.world, self.sharded, self.ffn_axes)
         rec = {"step": step, "snapshot_s": time.perf_counter() - t0, "write_s": None,
                "nbytes": sum(a.nbytes for a in flat.values())}
         self.saves.append(rec)

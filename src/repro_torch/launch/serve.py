@@ -31,7 +31,9 @@ uniform static plan baked for the run (as JAX's launcher bakes it), and
 each data group serves its slice of the batch.  Every rank runs the same
 deterministic host controller on the same estimate; the tables are held
 equal across ranks once a round (a difference raises).  Prefill takes
-the fabric; decode (S = 1) takes the dense fabric's EP form.
+the fabric; decode (S = 1) takes the dense fabric's EP form.  A config
+with ``expert_2d`` is refused across several data groups: training runs
+2D expert sharding, serving does not yet (``ROADMAP.md`` §1).
 Counterpart of ``repro/launch/serve.py``.
 """
 
@@ -146,7 +148,12 @@ def serve(
     re-planning between rounds under the ``drift`` scenario.  With
     ``world`` (``parallel.sharding.World``) every rank of it calls this:
     the controller plans over the model group's ranks instead of
-    ``virtual_ranks``."""
+    ``virtual_ranks``.  A config with ``expert_2d`` is not served across
+    several data groups yet (``NotImplementedError``)."""
+    if world is not None and world.two_d(model.cfg):
+        raise NotImplementedError(
+            "serving under expert_2d across several data groups (its decode on the dense EP form, each data "
+            "group's batch slice) is not ported yet: ROADMAP.md §1")
     with ep_world(world):
         return _serve(model, batch=batch, prompt_len=prompt_len, new_tokens=new_tokens, rounds=rounds,
                       controller=controller, n_ranks=virtual_ranks if world is None else world.n, drift=drift,

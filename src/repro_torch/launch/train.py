@@ -204,7 +204,7 @@ def main(argv=None) -> dict:
             log.info("world of %d ranks as (data %d, model %d), backend %s", world.size, world.n_data, world.n_model,
                      world.backend)
         model = Model(cfg, device=args.device if world is None else world.device, param_dtype=torch.float32,
-                      requires_grad=True, seed=0, expert_shard=None if world is None else (world.me, world.n))
+                      requires_grad=True, seed=0, **({} if world is None else world.model_shards(cfg)))
         log.info("arch %s, %d layers, %.3f B params%s", cfg.name, cfg.n_layers,
                  sum(p.numel() for p in model.parameters()) / 1e9, "" if world is None else " a rank")
         n_model, n_data = (args.virtual_ranks, 1) if world is None else (world.n_model, world.n_data)

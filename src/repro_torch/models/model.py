@@ -10,8 +10,10 @@ and ``requires_grad=True``.  ``seed`` draws the parameters from a
 ``torch.Generator`` on that device with the JAX init's distributions
 (the numbers differ from JAX's); ``seed=None`` leaves them for
 ``transplant.load_reference``.  ``expert_shard`` (rank, n) keeps EP rank
-``rank``'s contiguous slice of each MoE layer's experts (a seeded model
-draws every expert, so its slice equals the one-device model's).  With ``tie_embeddings`` there is no
+``rank``'s contiguous slice of each MoE layer's experts, and ``ffn_shard``
+(index, n) data group ``index``'s slice of their FFN width under 2D
+expert sharding (``World.model_shards`` gives both); a seeded model draws
+every expert whole, so its slice equals the one-device model's.  With ``tie_embeddings`` there is no
 ``head``: the logits are ``x @ table.T`` in f32, and the table is kept in
 f32 whatever the storage dtype, as JAX's ``unembed_apply`` reads it.  A
 modality frontend's precomputed embeddings (``ext_embeds`` [B, P, d]) are
@@ -54,21 +56,29 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {', '.join(bad)}: no such config in the JAX package")
 
 
+def _slice_of(total: int, index: int, n: int, what: str, over: str) -> tuple[int, int]:
+    """[lo, hi) of part ``index`` of ``total`` split into ``n`` equal parts."""
+    if total % n:
+        raise ValueError(f"{total} {what} do not split over {n} {over}")
+    part = total // n
+    return index * part, (index + 1) * part
+
+
 class Model(nn.Module):
     def __init__(
         self, cfg: ModelConfig, *, device=None, dtype=torch.bfloat16, param_dtype=None,
         seed: int | None = 0, requires_grad: bool = False, expert_shard: tuple[int, int] | None = None,
+        ffn_shard: tuple[int, int] | None = None,
     ):
         super().__init__()
         check_supported(cfg)
-        experts = None
+        experts = ffn = None
         if expert_shard is not None and cfg.moe is not None:
-            rank, n = expert_shard
-            if cfg.moe.n_experts % n:
-                raise ValueError(f"{cfg.moe.n_experts} experts do not split over {n} EP ranks")
-            e_local = cfg.moe.n_experts // n
-            experts = (rank * e_local, (rank + 1) * e_local)
+            experts = _slice_of(cfg.moe.n_experts, *expert_shard, "experts", "EP ranks")
+        if ffn_shard is not None and cfg.moe is not None:
+            ffn = _slice_of(cfg.moe.d_ff_expert, *ffn_shard, "expert FFN columns", "data groups")
         self.expert_shard = expert_shard
+        self.ffn_shard = ffn_shard if cfg.moe is not None else None
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -78,7 +88,8 @@ class Model(nn.Module):
         d = cfg.d_model
         table_dtype = torch.float32 if cfg.tie_embeddings else self.param_dtype
         self.embed = normal_param((cfg.vocab_size, d), 0.02, **{**kw, "dtype": table_dtype})
-        self.layers = nn.ModuleList(stack.block_init(cfg, l, **kw, experts=experts) for l in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            stack.block_init(cfg, l, **kw, experts=experts, ffn=ffn) for l in range(cfg.n_layers))
         self.ln_f = ones_param(d, device=self.device)
         self.head = None if cfg.tie_embeddings else normal_param((d, cfg.vocab_size), d**-0.5, **kw)
         self.requires_grad_(requires_grad)
@@ -119,6 +130,14 @@ class Model(nn.Module):
             n for n in names
             if n.endswith(("ffn.w_gate", "ffn.w_up", "ffn.w_down")) and n.rsplit(".", 1)[0] + ".router" in names
         )
+
+    def ffn_axes(self) -> dict[str, int]:
+        """The FFN-width axis of each expert parameter when the model holds a
+        slice of that width (2D expert sharding: ``w_gate``/``w_up`` [E, d,
+        F] on axis 2, ``w_down`` [E, F, d] on axis 1); empty otherwise."""
+        if self.ffn_shard is None:
+            return {}
+        return {n: 1 if n.endswith("w_down") else 2 for n in self.expert_names()}
 
     def reference_groups(self) -> list[list[str]]:
         """Parameter names grouped by the JAX leaf that holds them: one

@@ -19,10 +19,16 @@ JAX's ``moe_apply`` falls back on a mesh.  ``PATH_CALLS`` counts the
 layer calls by path.
 
 A rank holds just the experts ``world.expert_range(E)`` (``Model(...,
-expert_shard=)``); a module holding any other count raises.
+expert_shard=)``); a module holding any other count raises.  Under 2D
+expert sharding (``MoECfg.expert_2d`` in a world of several data groups,
+JAX's ``train_rules(expert_2d=True)``) it holds also just its data
+group's slice of their FFN width, ``world.ffn_range(F)``: every fabric,
+and the dense EP form, then runs each block through ``_expert_block``,
+which gathers the data groups' tokens around the GEMM on that slice.
 Gradients across ranks follow ``parallel.collectives``' convention: the
 router's and the input's are partial on each rank and sum over the model
-group to the one-device gradient; an expert's is whole on its rank.
+group to the one-device gradient; an expert's is whole on its rank (under
+2D: its FFN slice's, summed over every data group's tokens).
 
 On a CUDA tensor the expert FFN always runs K1 (and K2/K3 in its
 backward), on every fabric, whatever ``MoECfg.use_pallas`` says; a
@@ -43,7 +49,6 @@ from repro_torch.core.schedule import ScheduleTable
 from repro_torch.kernels.moe_gemm import ops as k1
 from repro_torch.models.layers import normal_param
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel import data_parallel as dp
 from repro_torch.parallel.fabric import FABRICS, FabricContext, get_fabric, resolve_fabric
 from repro_torch.parallel.fabric import geometry as geom
 from repro_torch.parallel.sharding import current_world
@@ -57,34 +62,38 @@ PATH_CALLS: collections.Counter = collections.Counter()
 class MoE(nn.Module):
     """router [d, E] (f32, as JAX uses it), w_gate/w_up [E, d, F] and
     w_down [E, F, d] in the storage dtype, cast to the compute dtype at use.
-    ``experts`` (lo, hi) keeps only those experts (an EP rank's slice)."""
+    ``experts`` (lo, hi) keeps only those experts (an EP rank's slice) and
+    ``ffn`` (lo, hi) only those columns of their FFN width (a data group's
+    slice under 2D expert sharding)."""
 
-    def __init__(self, cfg: ModelConfig, *, gen, device, dtype, experts=None):
+    def __init__(self, cfg: ModelConfig, *, gen, device, dtype, experts=None, ffn=None):
         super().__init__()
         m = cfg.moe
         d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
-        lo, hi = (0, e) if experts is None else experts
+        experts = slice(*((0, e) if experts is None else experts))
+        ffn = slice(*((0, f) if ffn is None else ffn))
         self.router = normal_param((d, e), 0.02, gen=gen, device=device, dtype=torch.float32)
         kw = dict(gen=gen, device=device, dtype=dtype)
-        self.w_gate = _expert_param((e, d, f), d**-0.5, lo, hi, **kw)
-        self.w_up = _expert_param((e, d, f), d**-0.5, lo, hi, **kw)
-        self.w_down = _expert_param((e, f, d), f**-0.5, lo, hi, **kw)
+        self.w_gate = _expert_param((e, d, f), d**-0.5, (experts, slice(None), ffn), **kw)
+        self.w_up = _expert_param((e, d, f), d**-0.5, (experts, slice(None), ffn), **kw)
+        self.w_down = _expert_param((e, f, d), f**-0.5, (experts, ffn, slice(None)), **kw)
 
 
-def _expert_param(shape, scale: float, lo: int, hi: int, *, gen, device, dtype) -> nn.Parameter:
-    """Experts [lo, hi) of a seeded [E, ...] draw.  The whole tensor is
-    drawn, so the generator's stream (and every later parameter) is the
-    one-device model's."""
-    if (lo, hi) == (0, shape[0]):
+def _expert_param(shape, scale: float, part: tuple, *, gen, device, dtype) -> nn.Parameter:
+    """The part ``part`` (a slice per axis) of a seeded [E, ...] draw.  The
+    whole tensor is drawn, so the generator's stream (and every later
+    parameter) is the one-device model's."""
+    sizes = tuple(len(range(*s.indices(n))) for s, n in zip(part, shape))
+    if sizes == tuple(shape):
         return normal_param(shape, scale, gen=gen, device=device, dtype=dtype)
     if gen is None:
-        return normal_param((hi - lo, *shape[1:]), scale, gen=None, device=device, dtype=dtype)
+        return normal_param(sizes, scale, gen=None, device=device, dtype=dtype)
     full = normal_param(shape, scale, gen=gen, device=device, dtype=dtype)
-    return nn.Parameter(full.data[lo:hi].clone(), requires_grad=False)
+    return nn.Parameter(full.data[part].clone(), requires_grad=False)
 
 
-def moe_init(cfg: ModelConfig, *, gen, device, dtype, experts=None) -> MoE:
-    return MoE(cfg, gen=gen, device=device, dtype=dtype, experts=experts)
+def moe_init(cfg: ModelConfig, *, gen, device, dtype, experts=None, ffn=None) -> MoE:
+    return MoE(cfg, gen=gen, device=device, dtype=dtype, experts=experts, ffn=ffn)
 
 
 def _router(p: MoE, cfg: ModelConfig, x: torch.Tensor):
@@ -102,17 +111,24 @@ def _router(p: MoE, cfg: ModelConfig, x: torch.Tensor):
 def _local_experts(p: MoE, cfg: ModelConfig, world) -> tuple:
     """(w_gate, w_up, w_down) of the experts this rank runs: all of them
     on one device, its ``world.expert_range`` across ranks (the module
-    holds just that slice)."""
-    e = cfg.moe.n_experts
-    held = p.w_gate.shape[0]
+    holds just that slice) and, under 2D expert sharding, its
+    ``world.ffn_range`` of their FFN width."""
+    m = cfg.moe
+    e, f = m.n_experts, m.d_ff_expert
+    held, held_f = p.w_gate.shape[0], p.w_gate.shape[2]
     ws = (p.w_gate, p.w_up, p.w_down)
-    if world is None or world.n == 1:
-        if held != e:
-            raise ValueError(f"the module holds {held} of {e} experts: run it under its EP world")
+    if world is None or world.size == 1:
+        if (held, held_f) != (e, f):
+            raise ValueError(f"the module holds {held} of {e} experts, {held_f} of {f} FFN columns: run it under "
+                             f"its world")
         return ws
     lo, hi = world.expert_range(e)
     if held != hi - lo:
         raise ValueError(f"the module holds {held} experts; EP rank {world.me} of {world.n} runs {hi - lo}")
+    f_lo, f_hi = world.ffn_range(f) if world.two_d(cfg) else (0, f)
+    if held_f != f_hi - f_lo:
+        raise ValueError(f"the module holds {held_f} FFN columns of each expert; data group {world.data_index} of "
+                         f"{world.n_data} runs {f_hi - f_lo} (expert_2d={m.expert_2d})")
     return ws
 
 
@@ -122,6 +138,26 @@ def _expert_ffn(ws, x: torch.Tensor, row_valid) -> torch.Tensor:
     if row_valid is None:
         row_valid = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
     return k1.moe_gemm(x, *(w.to(x.dtype) for w in ws), row_valid)
+
+
+def _expert_block(ctx: FabricContext, ws, blk: torch.Tensor, live) -> torch.Tensor:
+    """The grouped expert compute of one fabric block [G, C, d]: every
+    fabric's blocks pass through here.  Under 2D expert sharding the block
+    (and its validity) is all-gathered over the data group along the
+    capacity dim, K1 runs on the rank's slice of the FFN width, and the
+    partial outputs are reduce-scattered back, each data group keeping its
+    own rows summed over every slice.  The backward gathers the data
+    groups' cotangents, so an expert slice's gradient is summed over every
+    data group's tokens."""
+    if not ctx.two_d:
+        return _expert_ffn(ws, blk, live)
+    group, n_data = ctx.world.data_group, ctx.world.n_data
+    g, c, d = blk.shape
+    every = col.all_gather(blk, group).permute(1, 0, 2, 3).reshape(g, n_data * c, d)
+    if live is not None:
+        live = col.all_gather_stats(live.float(), group).permute(1, 0, 2).reshape(g, n_data * c) > 0
+    y_part = _expert_ffn(ws, every, live)
+    return col.reduce_scatter(y_part.reshape(g, n_data, c, d).permute(1, 0, 2, 3), group)
 
 
 def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, ws, *, return_stats: bool, token_weight=None):
@@ -135,7 +171,7 @@ def _pipeline_body(fabric, ctx: FabricContext, x_loc, p: MoE, ws, *, return_stat
     # one cast of the local experts a layer call, shared by every block's launch (as JAX casts once): under
     # autograd each launch would otherwise keep a copy of its own for the backward
     ws = tuple(w.to(x_loc.dtype) for w in ws)
-    ys = [_expert_ffn(ws, blk, live) for blk, live in blocks]
+    ys = [_expert_block(ctx, ws, blk, live) for blk, live in blocks]
     y_slots = fabric.combine(ctx, packed, state, ys)
     y_loc = fabric.unpack(ctx, packed, y_slots, t)  # [t, d] f32
     if not return_stats:
@@ -163,7 +199,8 @@ def _moe_dense(p, cfg, x, fabric, schedule, return_stats, token_weight, world):
     t = b * s
     n = 1 if world is None else world.n
     ctx = FabricContext(cfg=cfg, schedule=schedule, n=n, e_local=cfg.moe.n_experts // n,
-                        me=0 if world is None else world.me, world=world)
+                        me=0 if world is None else world.me, world=world,
+                        two_d=world is not None and world.two_d(cfg))
     PATH_CALLS["dense_ep" if ctx.ep else "virtual"] += 1
     weight = None if token_weight is None else token_weight.reshape(t)
     res = _pipeline_body(fabric, ctx, x.reshape(t, d), p, _local_experts(p, cfg, world),
@@ -183,7 +220,8 @@ def _moe_ep_pipeline(p, cfg, x, fabric, schedule, return_stats, token_weight, wo
     b, s, d = x.shape
     s_loc = s // n
     chunk = slice(me * s_loc, (me + 1) * s_loc)
-    ctx = FabricContext(cfg=cfg, schedule=schedule, n=n, e_local=m.n_experts // n, me=me, world=world)
+    ctx = FabricContext(cfg=cfg, schedule=schedule, n=n, e_local=m.n_experts // n, me=me, world=world,
+                        two_d=world.two_d(cfg))
     PATH_CALLS[fabric.name] += 1
     weight = None if token_weight is None else token_weight[:, chunk].reshape(b * s_loc)
     res = _pipeline_body(fabric, ctx, x[:, chunk].reshape(b * s_loc, d), p, _local_experts(p, cfg, world),
@@ -220,8 +258,6 @@ def moe_apply(
     if mode != "scheduled":
         get_fabric(mode)  # unknown names fail fast, listing the registry
     world = current_world()
-    if m.expert_2d and world is not None and world.size > 1:
-        raise dp.refuse("expert_2d (the expert FFN width sharded over the data groups)")
     n = 1 if world is None else world.n
     if n == 1 or mode == "dense" or x.shape[1] % n:
         fabric = FABRICS["dense"]

@@ -43,7 +43,7 @@ class Block(nn.Module):
     Mamba block (MoE, SwiGLU or GELU MLP); an rwkv6 block's channel mix
     lives in its mixer."""
 
-    def __init__(self, cfg: ModelConfig, j: int, *, gen, device, dtype, experts=None):
+    def __init__(self, cfg: ModelConfig, j: int, *, gen, device, dtype, experts=None, ffn=None):
         super().__init__()
         self.kind = cfg.layer_kind(j)
         kw = dict(gen=gen, device=device, dtype=dtype)
@@ -55,16 +55,17 @@ class Block(nn.Module):
         self.mixer = attn.attn_init(cfg, **kw) if self.kind == "attn" else mamba.Mamba(cfg, **kw)
         self.ln2 = ones_param(cfg.d_model, device=device)
         if cfg.ffn_kind(j) == "moe":
-            self.ffn = moe_init(cfg, **kw, experts=experts)
+            self.ffn = moe_init(cfg, **kw, experts=experts, ffn=ffn)
         elif cfg.ffn_gelu:
             self.ffn = GeluMLP(cfg.d_model, cfg.d_ff, **kw)
         else:
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
 
-def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype, experts=None) -> Block:
-    """``experts`` (lo, hi): the MoE FFN keeps those experts (an EP rank's slice)."""
-    return Block(cfg, j, gen=gen, device=device, dtype=dtype, experts=experts)
+def block_init(cfg: ModelConfig, j: int, *, gen, device, dtype, experts=None, ffn=None) -> Block:
+    """``experts`` (lo, hi): the MoE FFN keeps those experts (an EP rank's
+    slice); ``ffn`` (lo, hi): and that slice of their FFN width (2D)."""
+    return Block(cfg, j, gen=gen, device=device, dtype=dtype, experts=experts, ffn=ffn)
 
 
 def block_train(p: Block, cfg: ModelConfig, x, schedule, *, collect_stats=False):

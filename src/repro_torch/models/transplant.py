@@ -20,7 +20,12 @@ from their gradients, so tests compare leaf by leaf.
 Across EP ranks, ``load_reference(..., rank=, n_model=)`` keeps rank
 ``rank``'s contiguous slice of each MoE layer's experts (expert ``e`` on
 rank ``e // e_local``), and ``to_reference(..., world=)`` all-gathers the
-slices back over the world's model group.
+slices back over the world's model group.  Under 2D expert sharding
+``ffn_shard=(index, n_data)`` also keeps data group ``index``'s slice of
+each expert's FFN width (the last axis of ``w_gate``/``w_up``, axis 1 of
+``w_down``: JAX's ``P(EP, None, "data")`` and ``P(EP, "data", None)``),
+and ``to_reference`` gathers a model holding such slices over the data
+group first.
 """
 
 from __future__ import annotations
@@ -106,12 +111,15 @@ def _is_expert_leaf(attr: str, names) -> bool:
 def load_reference(
     cfg: ModelConfig, tree: dict, *, device=None, dtype=torch.bfloat16, param_dtype=None,
     requires_grad: bool = False, rank: int | None = None, n_model: int | None = None,
+    ffn_shard: tuple[int, int] | None = None,
 ) -> Model:
     """A ``Model`` holding the JAX parameters ``tree`` (numpy leaves);
-    with ``rank``/``n_model``, only that EP rank's experts."""
+    with ``rank``/``n_model``, only that EP rank's experts, and with
+    ``ffn_shard`` (index, n_data) only that slice of their FFN width."""
     shard = None if n_model is None else (rank, n_model)
     model = Model(cfg, device=device, dtype=dtype, param_dtype=param_dtype, seed=None, requires_grad=requires_grad,
-                  expert_shard=shard)
+                  expert_shard=shard, ffn_shard=ffn_shard)
+    ffn_axes = model.ffn_axes()
     leaves = _flatten(tree)
     used, unset = set(), {n for n, _ in model.named_parameters()}
 
@@ -141,10 +149,15 @@ def load_reference(
             if stacked.shape[0] != n_periods:
                 raise ValueError(f"{'/'.join(full)}: {stacked.shape[0]} periods, config has {n_periods}")
             arr = stacked[p]
+            name = f"layers.{l}.{attr}"
             if shard is not None and _is_expert_leaf(attr, bnames):
                 e_local = arr.shape[0] // n_model
                 arr = arr[rank * e_local:(rank + 1) * e_local]
-            put(f"layers.{l}.{attr}", arr, "/".join(full) + f"[{p}]")
+            if name in ffn_axes:
+                axis = ffn_axes[name]
+                f_local = arr.shape[axis] // ffn_shard[1]
+                arr = np.take(arr, range(ffn_shard[0] * f_local, (ffn_shard[0] + 1) * f_local), axis=axis)
+            put(name, arr, "/".join(full) + f"[{p}]")
     if set(leaves) - used:
         raise ValueError(f"unconsumed reference leaves: {sorted('/'.join(k) for k in set(leaves) - used)}")
     if unset:
@@ -162,14 +175,18 @@ def to_reference(model_or_grads, cfg: ModelConfig | None = None, *, world=None) 
     """The JAX pytree layout (numpy f32 leaves) of a ``Model``'s parameters
     or of a ``{name: tensor}`` dict keyed like ``model.named_parameters()``
     (e.g. their gradients; ``cfg`` gives the period, default 1).  Block
-    leaves are stacked over periods.  With ``world`` (every rank of its
-    model group calls it) each rank's expert slices are all-gathered."""
+    leaves are stacked over periods.  With ``world`` (every rank of the
+    world calls it) each rank's expert slices are all-gathered: over the
+    data group along the FFN width first where a ``Model`` holds a slice
+    of it (``Model.ffn_axes``, 2D), then over the model group."""
+    ffn_axes = {}
     if isinstance(model_or_grads, Model):
         named, cfg = dict(model_or_grads.named_parameters()), model_or_grads.cfg
+        ffn_axes = model_or_grads.ffn_axes()
     else:
         named = dict(model_or_grads)
     period = 1 if cfg is None else cfg.period
-    if world is not None and world.n > 1:
+    if world is not None and world.size > 1:
         from repro_torch.parallel.collectives import all_gather_stats
 
         for name in sorted(named):
@@ -178,7 +195,11 @@ def to_reference(model_or_grads, cfg: ModelConfig | None = None, *, world=None) 
             _, layer, attr = name.split(".", 2)
             if attr in _EXPERT_LEAVES and f"layers.{layer}.ffn.router" in named:
                 t = named[name].detach()
-                named[name] = all_gather_stats(t, world.model_group).reshape(-1, *t.shape[1:])
+                if name in ffn_axes:
+                    t = torch.cat(list(all_gather_stats(t, world.data_group)), dim=ffn_axes[name])
+                if world.n > 1:
+                    t = all_gather_stats(t, world.model_group).reshape(-1, *t.shape[1:])
+                named[name] = t
 
     def arr(name):
         return named.pop(name).detach().float().cpu().numpy()

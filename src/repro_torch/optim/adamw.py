@@ -54,8 +54,10 @@ def global_norm(tensors, *, sharded=(), group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor (f32).  Under a world,
     ``tensors`` are the leaves every rank holds alike (counted once) and
     ``sharded`` the leaves split over ``group`` (the experts over the model
-    group), whose squares are summed over it: the norm of the whole
-    gradient, the same on every rank."""
+    group; under 2D expert sharding over the whole world,
+    ``dist.group.WORLD``, each rank holding its own slice of them), whose
+    squares are summed over it: the norm of the whole gradient, the same
+    on every rank."""
     total = sum(torch.sum(torch.square(t.float())) for t in tensors)
     sharded = list(sharded)
     if sharded:
@@ -88,9 +90,10 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict, *, sharded=frozenset(), group=None):
         """One step in place.  Under a world, ``sharded`` names the leaves
-        split over ``group`` (the experts over the model group): the clip
-        norm is then the whole gradient's (``global_norm``), so every rank
-        clips by the same factor."""
+        split over ``group`` (the experts over the model group, or over
+        the world under 2D expert sharding): the clip norm is then the
+        whole gradient's (``global_norm``), so every rank clips by the same
+        factor."""
         step = state["step"] + 1
         gnorm = global_norm([g for n, g in grads.items() if n not in sharded],
                             sharded=[g for n, g in grads.items() if n in sharded], group=group)

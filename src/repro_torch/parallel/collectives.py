@@ -12,7 +12,9 @@ swapped (a ppermute phase's inverse permutation).  The all-gather's
 backward is this rank's slice of the gradient summed over the group, an
 all-reduce and a slice (gloo has no reduce-scatter in every version); the
 all-reduce's backward is an all-reduce.  Both sum in f32, whatever the
-cotangent's dtype.
+cotangent's dtype.  The reduce-scatter (2D expert sharding's return leg
+over the data group) is the all-gather's pair: an f32 all-reduce and this
+rank's slice forward, an all-gather backward.
 
 Gradients follow one convention: the cotangent a rank holds for a
 replicated tensor is its part of the whole, which is the sum over the
@@ -50,6 +52,7 @@ __all__ = [
     "scheduled_combine",
     "all_gather",
     "all_reduce_sum",
+    "reduce_scatter",
     "all_gather_stats",
 ]
 
@@ -238,6 +241,29 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the group, on every rank.  Differentiable."""
     return _AllReduceSum.apply(x, group)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        # an all-reduce and this rank's slice (gloo has no reduce-scatter in every version), summed in f32
+        total = x.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        dist.all_reduce(total, group=group)
+        return total[dist.get_rank(group)].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group), None
+
+
+def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """[n, ...] on each rank -> this rank's part of the sum over the
+    group, [...].  Differentiable: its backward is the all-gather (the
+    transpose of ``all_gather``, whose backward is this)."""
+    if x.shape[0] != dist.get_world_size(group):
+        raise ValueError(f"reduce_scatter: {x.shape[0]} parts for a group of {dist.get_world_size(group)} ranks")
+    return _ReduceScatter.apply(x, group)
 
 
 def all_gather_stats(x: torch.Tensor, group) -> torch.Tensor:

@@ -14,6 +14,14 @@ model group sum to 1), and then
   ``/ n_data``;
 * an expert's gradient is averaged over the data group.
 
+Under 2D expert sharding (``World.two_d``: ``MoECfg.expert_2d`` with more
+than one data group) a rank holds a slice of each of its experts' FFN
+width, and the layer gathers every data group's tokens around the GEMM
+on it (``models/moe.py``).  The reduce-scatter's backward gathers their
+cotangents too, so an expert slice's gradient is already summed over the
+data groups: it is only divided by ``n_data``, with no collective.  The
+replicated gradients are reduced as above.
+
 Each data group's loss is a mean over the same number of positions (a
 ``SyntheticStream`` row has ``seq - 1`` targets), so the mean of the
 groups' means is the global batch's mean, as JAX's ``P("data", ...)``
@@ -69,13 +77,16 @@ def batch_rows(global_batch: int, world) -> slice:
 
 
 @torch.no_grad()
-def reduce_gradients(grads: dict, world, sharded) -> None:
+def reduce_gradients(grads: dict, world, sharded, *, two_d: bool = False) -> None:
     """In place: every gradient of ``grads`` becomes the one-device
     gradient of the global batch (see the module doc).  ``sharded`` names
-    the expert leaves, split over the model group."""
+    the expert leaves, split over the model group (and, with ``two_d``,
+    along their FFN width over the data groups)."""
     for name in sorted(grads):
         g = grads[name]
-        if name in sharded and world.n_data == 1:
+        if name in sharded and (world.n_data == 1 or two_d):
+            if world.n_data > 1:
+                g.div_(world.n_data)
             continue
         for part in g.view(-1).split(CHUNK):
             dist.all_reduce(part, group=world.data_group if name in sharded else None)

@@ -70,7 +70,11 @@ class FabricContext:
     movement runs on (1 off a world: the virtual fabric's ranks live in
     the schedule row), ``e_local`` the experts a rank, ``me`` this rank's
     index in the model group and ``world`` the ``sharding.World`` (None
-    on one device)."""
+    on one device).  ``two_d``: 2D expert sharding, where a rank holds a
+    slice of each expert's FFN width and each block's tokens are gathered
+    over the data group around the expert GEMM (``models.moe``); only with
+    ``MoECfg.expert_2d`` in a world of several data groups
+    (``World.two_d``), as JAX needs a "data" axis in its mesh."""
 
     cfg: Any  # ModelConfig
     schedule: Any  # ScheduleTable row, A2ASchedule or None
@@ -78,6 +82,7 @@ class FabricContext:
     e_local: int = 0
     me: int = 0
     world: Any = None
+    two_d: bool = False
 
     @property
     def moe(self):

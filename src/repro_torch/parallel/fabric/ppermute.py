@@ -7,8 +7,9 @@ The plan is fixed for the run (the launcher bakes a uniform one), so a
 controller cannot swap it: use ``phase_pipelined`` / ``ragged_a2a`` for
 table rows.  The received phase blocks concatenate along the capacity dim
 into ONE grouped GEMM (K1) a layer call, so K phases do not fragment the
-expert batch.  This is the bytes floor of the executing fabrics (caps,
-not envelopes, no emulation padding).  Counterpart of
+expert batch; under 2D expert sharding each phase's block keeps a GEMM
+of its own (K + 1 launches), as in JAX.  This is the bytes floor of the
+executing fabrics (caps, not envelopes, no emulation padding).  Counterpart of
 ``repro/parallel/fabric/ppermute.py``.
 """
 
@@ -65,6 +66,10 @@ class PPermuteFabric(Fabric):
         d = packed.buf.shape[-1]
         buf = packed.buf.reshape(ctx.n, ctx.e_local, c_max, d)
         blocks = col.scheduled_dispatch(buf, sched_pe, ctx.group, ctx.me, count=True)
+        if ctx.two_d:
+            # 2D expert sharding keeps one GEMM a phase, as JAX does: each block's gather over the data group
+            # stays one phase's capacity (the concatenated buffer would gather every phase at once)
+            return [(blk, None) for blk in blocks], None
         # one grouped GEMM over the concatenated phase blocks (one K1 launch, not K + 1)
         sizes = [int(blk.shape[1]) for blk in blocks]
         return [(torch.cat(blocks, dim=1), None)], sizes
@@ -72,7 +77,7 @@ class PPermuteFabric(Fabric):
     def combine(self, ctx: FabricContext, packed: PackedTokens, state, ys):
         sched_pe, c_max = packed.meta
         d = packed.buf.shape[-1]
-        parts = list(torch.split(ys[0], state, dim=1))
+        parts = list(ys) if state is None else list(torch.split(ys[0], state, dim=1))
         back = col.scheduled_combine(parts, sched_pe, ctx.group, ctx.me, c_max)
         return back.reshape(ctx.n * ctx.e_local, c_max, d)
 

@@ -9,8 +9,10 @@ another ``layout=(n_data, n_model)``: the training launcher takes
 same ranks out anew (an elastic restart inside one job).  The model group is the EP
 group.  Experts are placed contiguously: expert ``e`` lives on model rank
 ``e // e_local``, so a bucket id ``dst_rank * e_local + local_expert`` is
-the expert id.  Every rank of a model group holds the full non-expert
-weights and computes the same activations; the MoE layer
+the expert id.  Under 2D expert sharding (``MoECfg.expert_2d`` with more
+than one data group) a rank also holds just its data group's slice of
+each expert's FFN width, ``ffn_range``.  Every rank of a model group
+holds the full non-expert weights and computes the same activations; the MoE layer
 (``models/moe.py``) cuts its tokens into per-rank chunks, moves them
 through a fabric and all-gathers the outputs over the model group.
 
@@ -135,6 +137,25 @@ class World:
             raise ValueError(f"{n_experts} experts do not split over {self.n_model} EP ranks")
         e_local = n_experts // self.n_model
         return self.me * e_local, (self.me + 1) * e_local
+
+    def ffn_range(self, d_ff: int) -> tuple[int, int]:
+        """[lo, hi) of the expert FFN width this rank holds under 2D expert
+        sharding: its data group's slice."""
+        if d_ff % self.n_data:
+            raise ValueError(f"an expert FFN width of {d_ff} does not split over {self.n_data} data groups")
+        f_local = d_ff // self.n_data
+        return self.data_index * f_local, (self.data_index + 1) * f_local
+
+    def two_d(self, cfg) -> bool:
+        """2D expert sharding is on: the config asks for it and the world has
+        more than one data group (JAX needs a "data" axis in its mesh)."""
+        return bool(cfg.moe is not None and cfg.moe.expert_2d and self.n_data > 1)
+
+    def model_shards(self, cfg) -> dict:
+        """``Model``'s keyword arguments for this rank's slice of the experts
+        (and, under 2D, of their FFN width)."""
+        return {"expert_shard": (self.me, self.n_model),
+                "ffn_shard": (self.data_index, self.n_data) if self.two_d(cfg) else None}
 
 
 def init_world(

@@ -10,17 +10,28 @@ routing averaged every ``host_observe_every`` steps.
 
 Step functions:
 
-* **prefill**: eager, one call per request at batch 1, padded to its
-  bucket, under the host runtime's table.  The port writes caches in
-  place, so each request prefills into a fresh row cache (the reference
-  reuses an immutable template).  ``prefill_executables`` counts the
-  distinct bucket shapes prefilled.
+* **prefill**: eager, one call per request at batch 1, under the host
+  runtime's table.  An attention-only model prefills the prompt padded to
+  its bucket, as the reference does.  A model with a recurrent layer
+  (``block == "rwkv6"``, or a hybrid's Mamba layers) prefills it at its
+  exact ``prefill_len``: the bucket stays the queue's length class only.
+  The reference pads those too (``repro/serve/engine.py``), so an RWKV
+  state, a Mamba layer's ``h`` and its conv tail absorb the padding
+  tokens, which no ``pos`` mask can take out again, and a padded prompt
+  decodes other tokens than the same prompt alone.  The port departs from
+  the reference there, as it does for the sliding window's ring slots: a
+  padded prompt's row equals an unpadded prefill's, and its tokens the
+  unbatched path's.  The prefill is eager at batch 1, so an exact length
+  compiles nothing.  The port writes caches in place, so each request
+  prefills into a fresh row cache (the reference reuses an immutable
+  template).  ``prefill_executables`` counts the distinct prefill shapes
+  run: the buckets of an attention-only model, the exact lengths of a
+  recurrent one.
 * **admit**: eager.  Positions ``>= prefill_len`` in the row's ``pos``
   leaves become -1 (padding KV never seen), then every leaf is copied
   into batch slot ``slot`` of the decode caches in place.  Float leaves
-  (an RWKV state) are copied as they are, as the reference does: such a
-  state has absorbed the bucket's padding tokens (a reference fault the
-  port keeps, ROADMAP §3).
+  (an RWKV state, a Mamba state) are copied as they are: they saw the
+  prompt's tokens only.
 * **decode**: on the card ONE CUDA graph, captured at the first decode
   step and replayed at every step after it.  Its static inputs are one
   [3, B] int32 buffer (tokens, per-slot positions, liveness), refilled
@@ -145,7 +156,9 @@ class ServeEngine:
         self._use_graph = self.device.type == "cuda"
         self._graph: torch.cuda.CUDAGraph | None = None
         self._graph_out = None
-        self._prefill_buckets: set[int] = set()
+        # a recurrent layer's state would absorb a padded prefill's padding tokens
+        self._recurrent = any(cfg.layer_kind(l) in ("rwkv6", "mamba") for l in range(cfg.n_layers))
+        self._prefill_shapes: set[int] = set()
         self._admits = 0
         self.graph_replays = 0
         # the last decode step's outputs as copied to the host (``split_outputs``)
@@ -243,15 +256,17 @@ class ServeEngine:
 
     # -------------------------------------------------------------- serving
     def _prefill_row(self, req: Request, bucket: int):
-        """Prefill one request at its bucket length, batch 1, into a fresh
-        row cache."""
+        """Prefill one request at batch 1 into a fresh row cache: padded to
+        its bucket, or at its exact length where a recurrent layer would
+        absorb the padding (module doc)."""
         plen = req.prefill_len
         row = self.model.init_cache(1, self.max_len, self.cache_dtype)
         if plen > 0:
-            padded = np.zeros((1, bucket), np.int32)
-            padded[0, :plen] = req.prompt[:-1]
-            self.model.prefill(torch.from_numpy(padded).to(self.device), row, schedule=self._prefill_table)
-            self._prefill_buckets.add(bucket)
+            length = plen if self._recurrent else bucket
+            tokens = np.zeros((1, length), np.int32)
+            tokens[0, :plen] = req.prompt[:-1]
+            self.model.prefill(torch.from_numpy(tokens).to(self.device), row, schedule=self._prefill_table)
+            self._prefill_shapes.add(length)
         return row, plen
 
     @torch.inference_mode()
@@ -434,13 +449,14 @@ class ServeEngine:
     # -------------------------------------------------------------- metrics
     def metrics(self) -> dict:
         """Serving telemetry; ``compile`` counts the decode graphs captured
-        (0 on the CPU, where the step runs eagerly), the bucket shapes
-        prefilled and the admit function (1 once used)."""
+        (0 on the CPU, where the step runs eagerly), the distinct prefill
+        lengths run (the buckets, or a recurrent model's exact lengths) and
+        the admit function (1 once used)."""
         out = {
             "serve": self._metrics.summary(),
             "compile": {
                 "decode_executables": int(self._graph is not None),
-                "prefill_executables": len(self._prefill_buckets),
+                "prefill_executables": len(self._prefill_shapes),
                 "admit_executables": int(self._admits > 0),
             },
         }

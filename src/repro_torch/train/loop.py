@@ -24,8 +24,9 @@ behaviour for behaviour:
 * across the ranks of a world (``parallel.sharding.ep_world``), JAX's
   loop under a (data, model) mesh: each data group trains on its rows of
   the global batch, the step reduces the gradients to the global batch's
-  (``parallel.data_parallel``), checkpoints are layout-free (rank 0
-  writes the global leaves; any layout, or one process, restores them),
+  (``parallel.data_parallel``; under 2D expert sharding too),
+  checkpoints are layout-free (rank 0 writes the global leaves; any
+  layout, 2D or not, or one process, restores them),
   and ``failure_hook``'s outcome is agreed by one MAX all-reduce before
   the step's first collective, so a failure on any rank rolls every rank
   back to the same checkpoint.  A rank's own error inside a step is not
@@ -226,7 +227,8 @@ def train_loop(
     state = step_fn.state
     if manager is None:
         manager = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep, world=world,
-                                    sharded=model.expert_names() if world is not None else ())
+                                    sharded=model.expert_names() if world is not None else (),
+                                    ffn_axes=model.ffn_axes() if world is not None else None)
     at_entry = {n: p.detach().to("cpu", copy=True) for n, p in state["params"].items()}
 
     @torch.no_grad()

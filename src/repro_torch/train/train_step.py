@@ -10,6 +10,7 @@ batch (``parallel.data_parallel``) before the update.  Counterpart of
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.compression import ef_int8_compress, ef_int8_init
 from repro_torch.parallel import data_parallel as dp
@@ -47,7 +48,9 @@ def make_train_step(model, optimizer, *, microbatches: int = 1, collect_routing:
 
     Under the current world (``sharding.ep_world``, read here) the step
     trains across ranks: ``batch`` is this rank's data group's rows,
-    ``loss`` the global batch's, the update the one every rank makes alike.  ef8 and
+    ``loss`` the global batch's, the update the one every rank makes alike,
+    under 2D expert sharding too (the model then holds its data group's
+    slice of the expert FFN width, ``World.model_shards``).  ef8 and
     the fused variant are refused there (``data_parallel.NEXT_SLICE``)."""
     if grad_compress not in (None, "ef8"):
         raise ValueError(f"grad_compress={grad_compress!r}: the port compresses with 'ef8' only")
@@ -74,7 +77,11 @@ def make_train_step(model, optimizer, *, microbatches: int = 1, collect_routing:
     groups = [names for names in groups if names]
     sharded = model.expert_names() if world is not None else frozenset()
     share = 1.0 if world is None else dp.loss_share(world)
-    update_kw = {} if world is None else {"sharded": sharded, "group": world.model_group}
+    two_d = world is not None and world.two_d(model.cfg)
+    # the clip norm sums the expert leaves' squares over the ranks that split them: the model group, or under 2D
+    # (a slice of each expert's width on every rank) the whole world
+    update_kw = {} if world is None else {"sharded": sharded,
+                                          "group": dist.group.WORLD if two_d else world.model_group}
 
     def train_step(batch: dict, schedule=None) -> dict:
         batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
@@ -99,7 +106,7 @@ def make_train_step(model, optimizer, *, microbatches: int = 1, collect_routing:
             for g in grads.values():
                 g.mul_(scale)
         if world is not None:
-            dp.reduce_gradients(grads, world, sharded)
+            dp.reduce_gradients(grads, world, sharded, two_d=two_d)
             loss_sum = dp.world_loss(loss_sum, world)
         if grad_compress == "ef8":
             ef_int8_compress(grads, ef_state, groups)

@@ -1,6 +1,7 @@
 """Rank-side bodies of the multi-rank tests (``test_torch_fabric_world.py``,
 ``test_torch_serve_world.py``, ``test_torch_fabric_world_cuda.py``,
-``test_torch_train_world.py``).
+``test_torch_train_world.py``, ``test_torch_expert_2d.py``,
+``test_torch_train_loop_cuda.py``).
 
 The ranks are spawned processes that import this module, so it imports
 torch, numpy and ``repro_torch`` only, never JAX; the pytest parent
@@ -11,7 +12,9 @@ of numpy arrays and plans, and returns numpy results.
 from __future__ import annotations
 
 import dataclasses
+from unittest import mock
 
+import numpy as np
 import torch
 
 from repro_torch.configs import smoke_config
@@ -69,14 +72,18 @@ def build_schedule(spec, device="cpu"):
     return spec
 
 
-def load_layer(cfg: ModelConfig, params: dict, world, *, device="cpu", dtype=torch.float32) -> pmoe.MoE:
+def load_layer(cfg: ModelConfig, params: dict, world, *, device="cpu", dtype=torch.float32, ffn=None) -> pmoe.MoE:
     """An MoE layer holding the rank's slice of the experts of ``params``
-    (numpy: router [d, E], w_gate / w_up [E, d, F], w_down [E, F, d])."""
+    (numpy: router [d, E], w_gate / w_up [E, d, F], w_down [E, F, d]) and,
+    with ``ffn`` (lo, hi), only those columns of their FFN width (2D)."""
     lo, hi = world.expert_range(cfg.moe.n_experts)
-    p = pmoe.moe_init(cfg, gen=None, device=device, dtype=dtype, experts=(lo, hi))
+    f_lo, f_hi = (0, cfg.moe.d_ff_expert) if ffn is None else ffn
+    p = pmoe.moe_init(cfg, gen=None, device=device, dtype=dtype, experts=(lo, hi), ffn=ffn)
     p.router.data.copy_(torch.from_numpy(params["router"]))
-    for name in ("w_gate", "w_up", "w_down"):
-        getattr(p, name).data.copy_(torch.from_numpy(params[name][lo:hi]).to(dtype))
+    parts = {"w_gate": np.s_[lo:hi, :, f_lo:f_hi], "w_up": np.s_[lo:hi, :, f_lo:f_hi],
+             "w_down": np.s_[lo:hi, f_lo:f_hi]}
+    for name, part in parts.items():
+        getattr(p, name).data.copy_(torch.from_numpy(params[name][part]).to(dtype))
     return p
 
 
@@ -302,10 +309,12 @@ class CaptureOpt:
 
 def train_model(cfg: ModelConfig, params: dict, world, device="cpu"):
     """The model of the JAX parameters ``params`` in f32, holding this
-    rank's experts (every expert without a world)."""
+    rank's experts (every expert without a world; under 2D expert sharding
+    its data group's slice of their FFN width)."""
     from repro_torch.models.transplant import load_reference
 
-    kw = {} if world is None else {"rank": world.me, "n_model": world.n_model}
+    kw = {} if world is None else {"rank": world.me, "n_model": world.n_model,
+                                   "ffn_shard": world.model_shards(cfg)["ffn_shard"]}
     return load_reference(cfg, params, device=device, dtype=torch.float32, param_dtype=torch.float32,
                           requires_grad=True, **kw)
 
@@ -364,8 +373,6 @@ def train_world(world, spec: dict) -> dict:
     the first losses of a loop at a capacity where nothing drops; (e) the checkpoint's state as the fault
     run left it; (f) what a world refuses."""
     import os
-
-    import numpy as np
 
     from repro_torch.core import ControllerConfig, DriftScenario, ScheduleRuntime
     from repro_torch.parallel.sharding import regroup
@@ -426,12 +433,12 @@ def train_world(world, spec: dict) -> dict:
 
 
 def refusals(world, cfg, params, data, ckpt) -> dict:
-    """The message of each NotImplementedError the world raises: ef8, the
-    fused device-controller step, a fabric switch and ``expert_2d``."""
+    """The message of each NotImplementedError the world raises (ef8, the
+    fused device-controller step, a fabric switch), or the final step and
+    loss of a case it runs (``expert_2d``, refused until 2D expert sharding
+    was ported)."""
     from repro_torch.core import ControllerConfig, ScheduleRuntime
     from repro_torch.launch.train import plan_controller
-
-    import numpy as np
 
     pcfg = with_dispatch(cfg, "phase_pipelined")
     out = {}
@@ -450,8 +457,8 @@ def refusals(world, cfg, params, data, ckpt) -> dict:
     }
     for name, run in cases.items():
         try:
-            run()
-            out[name] = None
+            res, _ = run()
+            out[name] = {"final_step": res["final_step"], "final_loss": res["final_loss"]}
         except NotImplementedError as e:
             out[name] = str(e)
     return out
@@ -503,3 +510,168 @@ def card_train_world(world, spec: dict) -> dict:
     out["elastic"] = run(regroup(world, spec["layout_b"]), os.path.join(spec["ckpt"], "fault"),
                          steps + spec["more_steps"])
     return out
+
+
+# ------------------------------------------------------------ 2D expert sharding
+def with_2d(cfg: ModelConfig, dispatch: str | None = None) -> ModelConfig:
+    """``cfg`` with ``expert_2d`` (and ``dispatch`` when given)."""
+    moe = dataclasses.replace(cfg.moe, expert_2d=True)
+    if dispatch is not None:
+        moe = dataclasses.replace(moe, dispatch=dispatch)
+    return dataclasses.replace(cfg, moe=moe)
+
+
+def _rank_state(state: dict) -> dict:
+    """A train step's state as numpy: parameters and both moments by name."""
+    return {part: {n: t.detach().cpu().numpy().copy() for n, t in tree.items()}
+            for part, tree in (("params", state["params"]), ("mu", state["opt"]["mu"]), ("nu", state["opt"]["nu"]))}
+
+
+def _restored(cfg, params, world, ckpt: str):
+    """A fresh model of ``cfg`` under ``world`` (2D where ``world.two_d``),
+    its train state restored from the latest checkpoint in ``ckpt``: (the
+    restored step, the state, a manager of ``world`` and the model's
+    layout)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    model = train_model(cfg, params, world)
+    with ep_world(world):
+        state = make_train_step(model, AdamW()).state
+    kw = {"world": world, "sharded": model.expert_names(), "ffn_axes": model.ffn_axes()}
+    step, _ = CheckpointManager(ckpt, **kw).restore_latest(state)
+    return step, state, kw
+
+
+def _layer_2d_case(world, spec, x, case_spec, gemms: list) -> dict:
+    """One 2D layer case of ``expert_2d_world``: ``run_layer``'s result with
+    the expert shapes the rank held and the grouped GEMMs it ran, or the
+    error a refusal raised."""
+    from repro_torch.core import FaultScenario
+    from repro_torch.parallel.fabric import FABRICS
+
+    dispatch, sched_spec, moe_kw = case_spec
+    moe_kw, name = dict(moe_kw), dispatch
+    if dispatch.startswith("faulty:"):  # a dead link from step 0 (refused) or from step 20 (not yet dark)
+        scenario = FaultScenario("dead_link", n_ranks=world.n_model, onset=moe_kw.pop("onset"))
+        name = wrap_faulty(dispatch.split(":", 1)[1], scenario)
+    try:
+        cfg = with_2d(layer_cfg(), name)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_kw))
+        p = load_layer(cfg, spec["params"], world, ffn=world.ffn_range(cfg.moe.d_ff_expert))
+        gemms[0] = 0
+        try:
+            res = run_layer(p, cfg, x, build_schedule(sched_spec), world)
+        except Exception as e:  # noqa: BLE001 - a refusal is the result
+            return {"error": type(e).__name__, "message": str(e)}
+        return {**res, "held": {k: tuple(getattr(p, k).shape) for k in ("w_gate", "w_up", "w_down")},
+                "gemms": gemms[0]}
+    finally:
+        if name != dispatch:
+            FABRICS.pop(name, None)
+
+
+def expert_2d_world(world, spec: dict) -> dict:
+    """2D expert sharding at (data 2, model 2): (a) one MoE layer per case
+    of ``spec["cases"]`` (name -> (dispatch, schedule spec, moe kwargs)),
+    each data group on its rows of ``spec["x"]``, each rank holding its
+    experts' slice of the FFN width; (b, c) one train step's reduced
+    gradients and clip norm and a 4-step loop's losses at
+    ``spec["nodrop"]``; (d) checkpoints across layouts: a 2D (2, 2) one
+    saved after two steps, restored onto (1, 4) without 2D, saved there and
+    restored into 2D (2, 2) again; ``to_reference`` of a 2D model; (e) the
+    serve launcher's refusal."""
+    import os
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch.serve import serve
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.parallel.sharding import regroup
+    from repro_torch.train import make_train_step
+
+    out = {}
+    rows = slice(world.data_index * spec["x"].shape[0] // world.n_data,
+                 (world.data_index + 1) * spec["x"].shape[0] // world.n_data)
+    x = torch.from_numpy(spec["x"][rows])
+    gemms, expert_ffn = [0], pmoe._expert_ffn
+
+    def counted_ffn(*args):  # the grouped GEMMs a layer call runs (K1 launches on the card)
+        gemms[0] += 1
+        return expert_ffn(*args)
+
+    with mock.patch.object(pmoe, "_expert_ffn", counted_ffn):
+        out["cases"] = {case: _layer_2d_case(world, spec, x, case_spec, gemms)
+                        for case, case_spec in spec["cases"].items()}
+
+    # (b, c) the train step's gradients and clip norm; the first losses of a loop
+    ncfg, data, params = spec["nodrop"], spec["data"], spec["train_params"]
+    out["grads"] = step_grads(ncfg, params, world, data)
+    res, _ = _loop(ncfg, params, world, data, os.path.join(spec["ckpt"], "loop"), steps=4)
+    out["loop"] = {k: res[k] for k in ("history", "final_step", "final_loss")}
+
+    # (d) a 2D checkpoint after two steps, restored onto (1, 4) without 2D, saved there, restored into 2D again
+    model = train_model(ncfg, params, world)
+    data_cfg = DataConfig(**data)
+    with ep_world(world):
+        step = make_train_step(model, AdamW(lr=1e-3), microbatches=2)
+        for i in range(2):
+            step(SyntheticStream(data_cfg).batch(i, host_slice=dp.batch_rows(data_cfg.global_batch, world)))
+    ckpt_2d, ckpt_1d = os.path.join(spec["ckpt"], "2d"), os.path.join(spec["ckpt"], "1d")
+    CheckpointManager(ckpt_2d, world=world, sharded=model.expert_names(), ffn_axes=model.ffn_axes()).save(
+        2, step.state)
+    out["saved_2d"] = _rank_state(step.state)
+    other = regroup(world, (1, 4))
+    step_1d, state_1d, kw_1d = _restored(ncfg, params, other, ckpt_2d)  # one data group: no 2D
+    CheckpointManager(ckpt_1d, **kw_1d).save(7, state_1d)
+    step_2d, state_2d, _ = _restored(ncfg, params, world, ckpt_1d)
+    out["restored_1d"] = {"step": step_1d, "opt_step": state_1d["opt"]["step"], "state": _rank_state(state_1d),
+                          "me": other.me, "ffn_axes": kw_1d["ffn_axes"]}
+    out["restored_2d"] = {"step": step_2d, "opt_step": state_2d["opt"]["step"], "state": _rank_state(state_2d)}
+
+    # the 2D model's parameters gathered back into JAX's layout; (e) serving under expert_2d is refused
+    from repro_torch.models.transplant import to_reference
+
+    smodel = train_model(ncfg, params, world)
+    out["gathered"] = to_reference(smodel, world=world)
+    try:
+        serve(smodel, world=world, batch=2, prompt_len=4, new_tokens=1, controller=False)
+        out["serve"] = None
+    except NotImplementedError as e:
+        out["serve"] = str(e)
+    return out
+
+
+def card_train_2d(world, spec: dict) -> dict:
+    """``spec["steps"]`` train steps of a seeded model on the card under
+    ``world``, each data group on its rows of the global batch: without 2D
+    expert sharding (every rank holding whole experts), then with it
+    (``spec["cfg"]`` has ``expert_2d``); each run's losses, the 2D run's
+    expert shapes and its K1/K2/K3 launches."""
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.train import make_train_step
+
+    data = DataConfig(**spec["data"])
+    rows = dp.batch_rows(data.global_batch, world)
+
+    def run(cfg):
+        model = Model(cfg, device=world.device, param_dtype=torch.float32, requires_grad=True, seed=0,
+                      **world.model_shards(cfg))
+        with ep_world(world):
+            step = make_train_step(model, AdamW(lr=spec["lr"]))
+            losses = [float(step(SyntheticStream(data).batch(i, host_slice=rows))["loss"])
+                      for i in range(spec["steps"])]
+        return losses, {n: tuple(p.shape) for n, p in model.named_parameters() if n in model.expert_names()}
+
+    cfg = spec["cfg"]
+    one_d, _ = run(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, expert_2d=False)))
+    for fn in K1_COUNTERS.values():
+        fn.launches = 0
+    two_d, shapes = run(cfg)
+    return {"one_d": one_d, "two_d": two_d, "shapes": shapes,
+            "launches": {k: fn.launches for k, fn in K1_COUNTERS.items()}}

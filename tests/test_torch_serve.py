@@ -8,9 +8,11 @@ package's (``repro.serve``) on the same weights and requests.
   RWKV6 in f32 with weights transplanted from the JAX init;
 * the engine: tokens request by request, the device controller's
   snapshots on the reference's drift trace and its final plan, the
-  ``controller="off"`` admission and baseline cases, RWKV with the
-  reference's padded-prefill behaviour, and Jamba (its controller, and its
-  Mamba state's padded prefill against the reference's row, within 1e-4),
+  ``controller="off"`` admission and baseline cases, RWKV and Jamba (its
+  controller) with the port's exact-length prefill of a recurrent model
+  (a padded prompt's row equals an unpadded prefill's, departing from the
+  reference's padded row), Mixtral's padded prefill unchanged against the
+  reference's row,
   h2o-danube (buckets a multiple of its window) and musicgen (sinusoidal
   positions at each slot's depth).
 
@@ -370,31 +372,37 @@ def test_fixed_round_baseline_still_completes(f32):
     assert [q.tokens for q in preqs] == [q.tokens for q in jreqs]
 
 
+def _assert_rows_equal(got, want, what):
+    """Two row caches equal leaf for leaf, bit for bit."""
+    for l, (a, b) in enumerate(zip(got, want)):
+        assert sorted(a) == sorted(b)
+        for key in a:
+            assert torch.equal(a[key], b[key]), f"{what}: layer {l} {key}"
+
+
 def test_rwkv_engine_equals_jax_with_the_padded_prefill(f32):
     """RWKV (no MoE: no controller).  The reference prefills each prompt
-    padded to its bucket and masks only the integer ``pos`` leaves, so the
-    recurrent state absorbs the padding; the port keeps that behaviour
-    (ROADMAP §3): its tokens equal JAX's.  A prompt whose prefill length
-    equals its bucket matches the unbatched path; a padded one does not."""
+    padded to its bucket, so its recurrent state absorbs the padding; the
+    port prefills a recurrent model at the exact prompt length (ROADMAP §3,
+    repaired).  A padded prompt's row equals an unpadded prefill's and its
+    tokens the unbatched path's, where they depart from JAX's engine; a
+    prompt whose prefill length equals its bucket still gives JAX's tokens."""
     jeng, peng = _engines("rwkv6-7b", decode_slots=2, max_len=16, buckets=(8,))
     assert not peng.has_controller
     jreqs, preqs = _specs(np.random.default_rng(5), 256, [(3, 4), (9, 4), (5, 4)])
     jeng.run(jreqs)
-    peng.run(preqs)
-    assert [r.tokens for r in preqs] == [r.tokens for r in jreqs]
-    model = peng.model
-    unbatched = []
+    pout = peng.run(preqs)
+    # the exact lengths prefilled: 2, 8 and 4 (one bucket in JAX's engine)
+    assert pout["compile"]["prefill_executables"] == 3
     for req in preqs:
-        caches = model.init_cache(1, peng.max_len, torch.float32)
-        model.prefill(torch.from_numpy(req.prompt[None, :-1]), caches)
-        tok, got = int(req.prompt[-1]), []
-        for s in range(req.prefill_len, req.prefill_len + req.max_new_tokens):
-            logits, _ = model.decode_step(torch.tensor([tok]), caches, s)
-            tok = int(torch.argmax(logits, dim=-1)[0])
-            got.append(tok)
-        unbatched.append(got)
-    assert preqs[1].prefill_len == 8 and preqs[1].tokens == unbatched[1]  # exactly its bucket
-    assert preqs[0].tokens != unbatched[0] and preqs[2].tokens != unbatched[2]  # padded: the reference fault
+        assert req.tokens == _unbatched_tokens(peng, req), req.rid
+    assert preqs[1].prefill_len == 8 and preqs[1].tokens == jreqs[1].tokens  # exactly its bucket: JAX's tokens
+    for i in (0, 2):  # padded: the reference's padding went into its state, the port's row saw the prompt only
+        assert preqs[i].prefill_len < 8 and preqs[i].tokens != jreqs[i].tokens, i
+        row, _ = peng._prefill_row(preqs[i], 8)
+        clean = peng.model.init_cache(1, peng.max_len, torch.float32)
+        peng.model.prefill(torch.from_numpy(preqs[i].prompt[None, :-1]), clean)
+        _assert_rows_equal(row, clean, f"request {i}")
 
 
 class TestRegimeLibraryAPI:
@@ -462,39 +470,65 @@ def _unbatched_tokens(peng, req, table=None, prefill_table=None):
 
 
 def test_jamba_engine_equals_jax_with_the_padded_prefill(f32):
-    """Jamba (Mamba, attention and MoE layers) under its device controller: tokens request by request,
-    the request counts and the controller's counters equal JAX's.  The Mamba layers' ``{"h", "tail"}``
-    state is copied into its slot as it is, as the reference copies its float leaves, so, like RWKV's, it
-    has absorbed the bucket's padding (ROADMAP §3): a padded prompt's row state equals the reference's
-    padded row (1e-4, f32) and differs from an unpadded prefill's; a prompt whose prefill length equals its
-    bucket gives the unbatched path's tokens."""
+    """Jamba (Mamba, attention and MoE layers) under its device controller.  Prompts that fill their bucket
+    exactly: tokens request by request, the request counts and the controller's counters equal JAX's.  With
+    padded prompts the port prefills at the exact length (ROADMAP §3, repaired): each request's tokens equal
+    the unbatched path's, and a padded prompt's row (every Mamba layer's ``h`` and conv tail, the attention
+    cache) equals an unpadded prefill's bit for bit, where JAX's row has absorbed the padding.  The
+    controller there sees the port's own routing, not JAX's, so its counters are not held against JAX's."""
     jeng, peng = _engines("jamba-1.5-large-398b", **PARITY_KW)
     assert peng.has_controller
-    jreqs, preqs = _specs(np.random.default_rng(7), 256, [(5, 4), (9, 5), (3, 4), (8, 3)])
+    jreqs, preqs = _specs(np.random.default_rng(7), 256, [(5, 4), (9, 5), (9, 3), (5, 4)])
+    assert all(r.prefill_len == peng.queue.bucket_of(r.prefill_len) for r in preqs)
     jout, pout = jeng.run(jreqs), peng.run(preqs)
     assert pout["serve"]["requests"] == jout["serve"]["requests"]
     assert pout["serve"]["requests"]["completed"] == len(preqs)
     assert [r.tokens for r in preqs] == [r.tokens for r in jreqs]
     for key in ("device_replans", "steps", "regime_warm_swaps", "host_replans"):
         assert pout["controller"][key] == jout["controller"][key], key
-    # the padded prefill's Mamba state (h and conv tail of every Mamba layer) equals the reference's
-    # row, and differs from an unpadded prefill's: the padding went into it
+
+    jeng, peng = _engines("jamba-1.5-large-398b", **PARITY_KW)
+    jreqs, preqs = _specs(np.random.default_rng(7), 256, [(5, 4), (9, 5), (3, 4), (8, 3)])
+    jeng.run(jreqs)
+    pout = peng.run(preqs)
+    assert pout["serve"]["requests"]["completed"] == len(preqs)
+    assert pout["compile"]["prefill_executables"] == 4  # exact lengths 4, 8, 2 and 7
+    for req in preqs:
+        assert req.tokens == _unbatched_tokens(peng, req, peng._table, peng._prefill_table), req.rid
     req = preqs[3]
     assert req.prefill_len == 7 and peng.queue.bucket_of(req.prefill_len) == 8
     jrow, _ = jeng._prefill_row(jreqs[3], 8)
     prow, _ = peng._prefill_row(req, 8)
     clean = peng.model.init_cache(1, peng.max_len, torch.float32)
     peng.model.prefill(torch.from_numpy(req.prompt[None, :-1]), clean, schedule=peng._prefill_table)
+    _assert_rows_equal(prow, clean, "the padded prompt's row")
     cfg = peng.cfg
-    mamba_layers = [l for l in range(cfg.n_layers) if cfg.layer_kind(l) == "mamba"]
-    for l in mamba_layers:
-        jh, jtail = (np.asarray(t[l // cfg.period]) for t in jrow[f"pos{l % cfg.period}"])
-        np.testing.assert_allclose(prow[l]["h"].numpy(), jh, rtol=1e-4, atol=1e-4, err_msg=f"layer {l} h")
-        np.testing.assert_allclose(prow[l]["tail"].numpy(), jtail, rtol=1e-4, atol=1e-4, err_msg=f"layer {l} tail")
-        assert (prow[l]["h"] - clean[l]["h"]).abs().max() > 1e-3, f"layer {l}: the padding left h untouched"
-    for req in preqs[:2]:  # exactly its bucket: no padding, the unbatched path's tokens
-        assert req.prefill_len == peng.queue.bucket_of(req.prefill_len)
-        assert req.tokens == _unbatched_tokens(peng, req, peng._table, peng._prefill_table)
+    for l in (l for l in range(cfg.n_layers) if cfg.layer_kind(l) == "mamba"):
+        jh, _ = (np.asarray(t[l // cfg.period]) for t in jrow[f"pos{l % cfg.period}"])
+        assert np.abs(prow[l]["h"].numpy() - jh).max() > 1e-3, f"layer {l}: JAX's row did not absorb the padding"
+
+
+def test_attention_only_engine_keeps_the_padded_prefill(f32):
+    """Mixtral (attention and MoE, no recurrent layer): the engine still prefills each prompt padded to its
+    bucket, as JAX's does, and masks the padding positions at admit.  Two bucket shapes run; a padded prompt's
+    row equals JAX's padded row (1e-4, f32); every request's
+    tokens and the controller's counters equal JAX's."""
+    jeng, peng = _engines(**PARITY_KW)
+    jreqs, preqs = _specs(np.random.default_rng(0), 256, PARITY_SPECS)
+    req, jreq = preqs[0], jreqs[0]
+    assert req.prefill_len == 2 and peng.queue.bucket_of(req.prefill_len) == 4
+    jrow, _ = jeng._prefill_row(jreq, 4)
+    prow, _ = peng._prefill_row(req, 4)
+    assert int(prow[0]["pos"][0, 3]) == 3  # the padding was prefilled (positions 2 and 3)
+    for l in range(peng.cfg.n_layers):
+        for key in ("k", "v", "pos"):
+            np.testing.assert_allclose(prow[l][key].numpy(), np.asarray(jrow["pos0"][key][l]), rtol=1e-4, atol=1e-4,
+                                       err_msg=f"layer {l} {key}")
+    jout, pout = jeng.run(jreqs), peng.run(preqs)
+    assert pout["compile"]["prefill_executables"] == 2
+    assert [r.tokens for r in preqs] == [r.tokens for r in jreqs]
+    for key in ("device_replans", "steps", "regime_warm_swaps", "host_replans"):
+        assert pout["controller"][key] == jout["controller"][key], key
 
 
 def test_h2o_danube_engine_equals_jax_with_window_multiple_buckets(f32):

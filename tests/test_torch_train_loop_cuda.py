@@ -18,7 +18,11 @@ world sharing the card over gloo, laid out as (data 1, model 2), trains
 the smoke Mixtral under ``phase_pipelined``; a failure on rank 1 alone
 rolls both ranks back, ending at the clean run's final loss within 1e-5,
 and the checkpoint restored onto (data 2, model 1) trains on; K1/K2/K3
-launched 2/1/1 times an expert block of each layer call.
+launched 2/1/1 times an expert block of each layer call.  The same world
+laid out as (data 2, model 1) trains under 2D expert sharding (each rank
+its half of every expert's FFN width, K1 on the tokens gathered over the
+data group): each step's loss within 2e-3 of the same world's without
+2D.
 """
 
 import dataclasses
@@ -169,3 +173,33 @@ def test_train_world_survives_a_fault_on_one_rank_and_restarts_on_card(cuda_devi
         for name, n in executed.items():
             blocks = rank[name]["per_call"] * cfg.n_moe_layers * n
             assert rank[name]["launches"] == {"k1": 2 * blocks, "k2": blocks, "k3": blocks}, (r, name)
+
+
+@pytest.mark.cuda
+def test_expert_2d_step_across_two_ranks_on_card(cuda_device):
+    """Two ranks sharing the card as (data 2, model 1) under ``expert_2d``:
+    every rank holds the 8 experts' half of an FFN width of 128 (K1 tiles
+    64 columns); the losses of 3 AdamW steps (lr 1e-4, capacity 8.0:
+    nothing drops) within 2e-3 relative of the same world's without 2D
+    (``chip_smoke.py``'s ``TW_2D_LOSS_RTOL``: one more bf16 rounding of each
+    partial output), the same on both ranks; K1/K2/K3 launched 2/1/1 times
+    a layer and step (remat per block, one block: the dense fabric)."""
+    from repro_torch.kernels import build
+
+    build.build_all()  # once, before the ranks start, so they do not race nvcc
+    cfg = smoke_config("mixtral-8x7b")
+    moe = dataclasses.replace(cfg.moe, d_ff_expert=128, capacity_factor=8.0, expert_2d=True)
+    cfg = dataclasses.replace(cfg, remat="block", moe=moe)
+    steps = 3
+    spec = {"cfg": cfg, "data": dict(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4), "steps": steps, "lr": 1e-4}
+    ranks = spawn_world(tw.card_train_2d, 2, device="cuda", layout=(2, 1), args=(spec,), timeout_s=300)
+    d = cfg.d_model
+    for rank in ranks:
+        assert all(np.isfinite(rank["two_d"])), rank
+        np.testing.assert_allclose(rank["two_d"], rank["one_d"], rtol=2e-3)
+        assert rank["two_d"] == ranks[0]["two_d"]
+        for name, shape in rank["shapes"].items():
+            want = (8, 64, d) if name.endswith("w_down") else (8, d, 64)
+            assert shape == want, (name, shape)
+        blocks = cfg.n_moe_layers * steps
+        assert rank["launches"] == {"k1": 2 * blocks, "k2": blocks, "k3": blocks}, rank["launches"]

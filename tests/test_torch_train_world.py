@@ -33,8 +33,10 @@ microbatches, AdamW at peak 1e-3 after 4 warmup steps, checkpoints every
 * (e) the (2, 2) checkpoint of step 12 restored into one process, leaf for
   leaf equal to the state the ranks held, gathered (the two data groups'
   replicas equal too);
-* (f) ef8, the fused device-controller step, a fabric switch and
-  ``expert_2d`` refused under the world with ``NotImplementedError``.
+* (f) ef8, the fused device-controller step and a fabric switch refused
+  under the world with ``NotImplementedError``; ``expert_2d``, refused
+  there until 2D expert sharding was ported, runs its step
+  (``test_torch_expert_2d.py`` holds it against one process and JAX).
 
 The 8-rank runs exactly as JAX runs them, (4, 2) then (2, 4), are the
 ``slow`` test at the end.
@@ -227,9 +229,16 @@ def test_world_checkpoint_restores_into_one_process(world):
 
 def test_world_refuses_what_it_does_not_run(world):
     _, ranks = world
+    losses = set()
     for rank in ranks:
+        assert sorted(rank["refused"]) == ["device_controller", "ef8", "expert_2d", "fabric_switch"]
         for case, msg in rank["refused"].items():
-            assert msg is not None and "ROADMAP.md" in msg, (case, msg)
+            if case == "expert_2d":  # runs now: one step, the global batch's loss on every rank
+                assert isinstance(msg, dict) and msg["final_step"] == 1 and np.isfinite(msg["final_loss"]), msg
+                losses.add(msg["final_loss"])
+            else:
+                assert isinstance(msg, str) and "ROADMAP.md" in msg, (case, msg)
+    assert len(losses) == 1
 
 
 @pytest.mark.parametrize("n,want", [(1, (1, 1)), (2, (1, 2)), (3, (3, 1)), (4, (1, 4)), (6, (3, 2)), (8, (1, 8)),
